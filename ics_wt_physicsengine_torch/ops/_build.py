@@ -51,19 +51,19 @@ def nvcc_path() -> str:
     return path
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the library if this source hash has not been built yet;
-    return its path. ``build_info`` records the seconds the build took and
-    the compiler's output (``-Xptxas -v``: registers and spills)."""
-    out_dir = BUILD_ROOT / _source_hash()
+def build(flags=NVCC_FLAGS) -> Path:
+    """Compile the library with ``flags`` if this source hash has not been
+    built yet; return its path. ``build_info`` records the seconds the build
+    took and the compiler's output (``-Xptxas -v``: registers and spills)."""
+    out_dir = BUILD_ROOT / _source_hash(flags)
     lib_path = out_dir / "libwt_fused_rollout.so"
     log_path = out_dir / "nvcc.log"
     if lib_path.exists():
@@ -73,7 +73,7 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libwt_fused_rollout.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc_path(), *flags, "-o", str(tmp),
            str(CSRC / "fused_rollout.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -89,11 +89,16 @@ def build() -> Path:
 
 
 def load():
-    """The loaded kernel library, built first if needed."""
+    """The kernel library the wrappers launch, built first if needed."""
     global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(str(build()))
+    if _lib is None:
+        _lib = bind(build())
+    return _lib
+
+
+def bind(path: Path):
+    """Load the library at ``path`` and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.wt_rollout_fused, lib.wt_rollout_scheduled):
         fn.argtypes = [i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -101,5 +106,4 @@ def load():
         fn.restype = i32
     lib.wt_error_string.argtypes = [i32]
     lib.wt_error_string.restype = ctypes.c_char_p
-    _lib = lib
     return lib

@@ -5,33 +5,20 @@ none. Run it there with
 
     python -m pytest -m gpu --noconftest -p no:randomly tests/test_torch_gpu.py
 
-Tolerances: the kernels are built without FMA contraction and the plain
-versions divide as the kernels do, so both round every operation alike and
-agree bit for bit where PyTorch's elementwise exp is the device's. The
-stated bounds, float64 1e-12 and float32 1e-4, leave room for a last-bit
-difference carried over a few hundred evaluations, and are small enough to
-catch a flipped stratification switch (Ri > 0.25), which moves a state by
-~1e-3."""
+The tables and tolerances are ``ops/kernel_checks.py``'s, which
+``chip_smoke.py`` runs at the main path's shapes."""
 
 import numpy as np
 import pytest
 import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
-from ics_wt_physicsengine_torch.models.monte_carlo import (
-    make_monte_carlo_batch)
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
+from ics_wt_physicsengine_torch.ops import kernel_checks as K
 
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.gpu
-
-TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
-BC = R.BoundaryConditions(
-    inlet_flow_rate=5.0, inlet_pH=7.2, inlet_chlorine=0.5,
-    inlet_temperature=26.0, acid_flow_rate=0.1, acid_concentration=0.1,
-    chlorine_flow_rate=0.2, chlorine_concentration=50.0,
-    ambient_temperature=15.0, heat_loss_coefficient=50.0)
 
 
 @pytest.fixture
@@ -41,56 +28,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tables(n_zones, n_plants, dtype, device, seed=0):
-    cfg = R.ReactorConfiguration(n_zones=n_zones)
-    params, state = make_monte_carlo_batch(cfg, n_plants, seed=seed,
-                                           dtype=dtype, device=device)
-    ptab = F.param_table(params, n_plants, dtype, device)
-    btab = F.boundary_table(BC, n_plants, dtype, device)
-    return ptab, btab, (state.pH, state.chlorine, state.temperature)
-
-
-def _max_err(a, b):
-    return max(float((x - y).abs().max()) for x, y in zip(a[:3], b[:3]))
-
-
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n_zones,n_plants", [(20, 1), (5, 37), (20, 50)])
 @pytest.mark.parametrize("substeps,stages", [(3, None), (1, 4), (2, 3)])
 def test_b1_matches_plain(cuda, dtype, n_zones, n_plants, substeps, stages):
-    ptab, btab, y = _tables(n_zones, n_plants, dtype, cuda)
-    kw = dict(dt=1.0, substeps=substeps, n_steps=40, stages=stages,
-              record_every=8)
-    got = F.rollout_kernel(ptab, btab, *y, **kw)
-    torch.cuda.synchronize()
-    ref = F.rollout_plain(ptab, btab, *y, **kw)
-    assert _max_err(got, ref) <= TOL[dtype]
-    assert _max_err(got[3], ref[3]) <= TOL[dtype]
+    got, err = K.b1_vs_plain(n_zones, n_plants, dtype, cuda,
+                             substeps=substeps, stages=stages, n_steps=40,
+                             record_every=8)
+    assert err <= K.TOL[dtype]
     assert torch.equal(got[3][0][-1], got[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_b2_matches_plain_and_constant_schedule_equals_b1(cuda, dtype):
-    ptab, btab, y = _tables(20, 13, dtype, cuda)
-    t = np.arange(30)
-    sched = F.schedule_table(R.BoundaryConditions(
-        inlet_flow_rate=5.0 + 2.0 * np.sin(2 * np.pi * t / 17.0),
-        inlet_pH=7.2, inlet_chlorine=np.where(t % 10 < 5, 0.5, 1.5),
-        acid_flow_rate=np.where(t % 8 < 4, 0.0, 0.3),
-        ambient_temperature=15.0, heat_loss_coefficient=50.0), 30, dtype,
-        cuda)
-    got = F.scheduled_kernel(ptab, sched, *y, dt=1.0, substeps=3,
-                             record_every=5)
-    ref = F.scheduled_plain(ptab, sched, *y, dt=1.0, substeps=3,
-                            record_every=5)
-    assert _max_err(got, ref) <= TOL[dtype]
-
-    const = btab[:, :1].T.expand(30, -1).contiguous()
-    b2 = F.scheduled_kernel(ptab, const, *y, dt=1.0, substeps=3, stages=4)
-    b1 = F.rollout_kernel(ptab, btab, *y, dt=1.0, substeps=3, n_steps=30,
-                          stages=4)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(b1[:3], b2[:3]))
+    _, err = K.b2_vs_plain(20, 13, dtype, cuda, substeps=3, stages=None,
+                           n_steps=30, record_every=5)
+    assert err <= K.TOL[dtype]
+    assert K.constant_schedule_equals_b1(20, 13, dtype, cuda, substeps=3,
+                                         stages=4, n_steps=30)
 
 
 def test_wrappers_launch_the_kernels_on_cuda_tensors(cuda):
@@ -98,7 +53,8 @@ def test_wrappers_launch_the_kernels_on_cuda_tensors(cuda):
     state = R.make_initial_state(R.ReactorConfiguration(n_zones=20),
                                  device=cuda)
     F.reset_launch_counts()
-    out = F.rollout_fused(params, state, BC, dt=1.0, substeps=3, n_steps=10)
+    out = F.rollout_fused(params, state, K.BC, dt=1.0, substeps=3,
+                          n_steps=10)
     sched = R.BoundaryConditions(inlet_pH=np.full(10, 7.0))
     out2 = F.rollout_scheduled_fused(params, state, sched, dt=1.0,
                                      substeps=3)
@@ -110,12 +66,5 @@ def test_wrappers_launch_the_kernels_on_cuda_tensors(cuda):
 
 def test_b1_float64_matches_the_cpu_path(cuda):
     """The kernel on the card against the plain version on the CPU, which
-    the CPU suite holds to the JAX package (the two exp implementations may
-    differ in the last bit)."""
-    ptab, btab, y = _tables(20, 16, torch.float64, cuda)
-    kw = dict(dt=1.0, substeps=2, n_steps=50, stages=None)
-    got = F.rollout_kernel(ptab, btab, *y, **kw)
-    ref = F.rollout_plain(ptab.cpu(), btab.cpu(), *(x.cpu() for x in y),
-                          **kw)
-    assert max(float((a.cpu() - b).abs().max())
-               for a, b in zip(got[:3], ref[:3])) <= 1e-9
+    the CPU suite holds to the JAX package."""
+    assert K.b1_vs_cpu(16, cuda, substeps=2, n_steps=50) <= K.CPU_TOL

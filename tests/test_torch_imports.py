@@ -1,7 +1,7 @@
-"""The PyTorch port, its smoke script and its GPU tests import neither JAX
-nor the JAX package. Checked on the source (an AST scan): the interpreter
-may have imported JAX before any test runs, so ``sys.modules`` proves
-nothing."""
+"""The PyTorch port, its smoke script, its card-side measurement script and
+its GPU tests import neither JAX nor the JAX package. Checked on the source
+(an AST scan): the interpreter may have imported JAX before any test runs,
+so ``sys.modules`` proves nothing."""
 
 import ast
 from pathlib import Path
@@ -11,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "ics_wt_physicsengine_tpu")
 SOURCES = sorted((ROOT / "ics_wt_physicsengine_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_fma_cost.py",
+    ROOT / "tests" / "test_torch_gpu.py"]
 
 
 def _imported_modules(path):
