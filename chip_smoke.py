@@ -7,28 +7,43 @@ Phases:
  1. the card's name and power limit (nvidia-smi);
  2. build the CUDA kernels from ics_wt_physicsengine_torch/csrc (nvcc
     time and the -Xptxas -v register/spill report);
- 3. each kernel against its plain PyTorch version on the card, in float64
-    and float32, for RK4, RKC-strict and RKC-fast, on a single 20-zone plant
-    and 1024-plant Monte-Carlo batches at 5 and 20 zones (200 steps,
-    recorded every 10), plus the 4096 x 20 main-path shape; B2 on the
-    bench's dosing schedule; a constant schedule through B2 equal to B1;
-    B1 in float64 against the plain version on the CPU (the tables and
+ 3. kernels B1 and B2 against their plain PyTorch versions on the card, in
+    float64 and float32, for RK4, RKC-strict and RKC-fast, on a single
+    20-zone plant and 1024-plant Monte-Carlo batches at 5 and 20 zones (200
+    steps, recorded every 10), plus the 4096 x 20 main-path shape; B2 on
+    the bench's dosing schedule; a constant schedule through B2 equal to
+    B1; B1 in float64 against the plain version on the CPU (the tables and
     tolerances of ics_wt_physicsengine_torch/ops/kernel_checks.py);
- 4. the main path at full size: 4096 parameter-randomized 20-zone plants,
-    7200 one-second steps, RK4 (3 substeps) and RKC-fast (1 x 4 stages),
-    make_monte_carlo_batch -> rollout_fused (kernel B1) ->
+ 3b. kernel B3 (the instrumented plant) against its plain version on the
+    card over kernel_checks.B3_CASES (single plant and 64-plant batches, 5
+    and 20 zones, RK4 and RKC-fast, constant and scheduled forcing,
+    injected words and Philox, recording every step and every tenth,
+    per-plant line delays, interior zone taps, float32 and float64): state,
+    every carry column, rebuilt rings, readings, NaN positions; a chained
+    plain -> kernel -> plain run; a constant schedule equal to constant
+    forcing; the kernel's Philox stream against the plain one, with its
+    statistics; and the main-path shapes 4096 x 20 and 1 x 20, timed;
+ 4. the bare-physics main path at full size: 4096 parameter-randomized
+    20-zone plants, 7200 one-second steps, RK4 (3 substeps) and RKC-fast
+    (1 x 4 stages), make_monte_carlo_batch -> rollout_fused (kernel B1) ->
     ensemble_statistics / exceedance_probability; then 32768 plants x 2000
     steps;
  5. one scheduled 20-zone plant for 32768 steps of the dosing schedule,
     RKC-fast, through rollout_scheduled_fused (kernel B2);
+ 5b. the instrumented main path through plant_rollout_fused and
+    plant_rollout_auto (kernel B3, Philox): one 20-zone plant for 16384
+    steps with RK4, RKC-fast and the bench schedule; one 3600-step
+    scheduled segment recorded every 60 steps, chained twice; 4096 plants
+    x 20 zones x 2000 steps recorded every 100; each beside the physics
+    alone (B1/B2) at the same size; then the port's entry() on the card;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4 and 5. Direct kernel calls (phase 3, the kernel-only
-times of phase 4) and phase 6 lie outside those windows. Exits non-zero,
+the sum over phases 4, 5 and 5b. Direct kernel calls (phases 3 and 3b, the
+kernel-only times) and phase 6 lie outside those windows. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -44,17 +59,26 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 FP32_PEAK = 67e12       # H100 SXM, non-tensor FP32 [operation/s]
+HBM_RATE = 3.35e12      # H100 SXM device memory [byte/s]
 DT = 1.0
-SOURCE = "ics_wt_physicsengine_torch/csrc/fused_rollout.cu"
-TPU_KERNELS = "ics_wt_physicsengine_tpu/ops/fused_rollout.py"
-REPLACES = {"rollout_fused": f"{TPU_KERNELS}:272",
-            "rollout_scheduled_fused": f"{TPU_KERNELS}:312"}
+CSRC = "ics_wt_physicsengine_torch/csrc"
+TPU_OPS = "ics_wt_physicsengine_tpu/ops"
+# kernel name -> (source in the repository, TPU kernel it replaces)
+KERNELS = {
+    "rollout_fused": (f"{CSRC}/fused_rollout.cu",
+                      f"{TPU_OPS}/fused_rollout.py:272"),
+    "rollout_scheduled_fused": (f"{CSRC}/fused_rollout.cu",
+                                f"{TPU_OPS}/fused_rollout.py:312"),
+    "plant_rollout_fused": (f"{CSRC}/fused_plant.cu",
+                            f"{TPU_OPS}/fused_plant.py:293"),
+}
 
 failures: list = []
 report: dict = {"phases": {}}
@@ -107,9 +131,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from ics_wt_physicsengine_torch import entry as port_entry
     from ics_wt_physicsengine_torch.core import reactor as R
     from ics_wt_physicsengine_torch.models import make_monte_carlo_batch
+    from ics_wt_physicsengine_torch.models import plant as P
     from ics_wt_physicsengine_torch.ops import _build
+    from ics_wt_physicsengine_torch.ops import fused_plant as FP
     from ics_wt_physicsengine_torch.ops import fused_rollout as F
     from ics_wt_physicsengine_torch.ops import kernel_checks as K
     from ics_wt_physicsengine_torch.parallel import (
@@ -118,12 +145,12 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {name: {"name": name, "route": "cuda", "source": SOURCE,
-                      "replaces": REPLACES[name], "launches": 0,
+    kernels = {name: {"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": 0,
                       "max_abs_err": None, "ms": None, "plain_ms": None,
                       "bound_ms": None, "bound_by": "operations",
                       "library_ms": None}
-               for name in F.LAUNCHES}
+               for name, (source, replaces) in KERNELS.items()}
     card = card_line()
     report["card"] = card
     report["torch"] = f"{torch.__version__} cuda {torch.version.cuda}"
@@ -135,14 +162,22 @@ def main() -> int:
     # ---- 2. build ------------------------------------------------------
     @phase("build")
     def build():
-        _build.load()
+        _build.load()                       # every library, in parallel
         info = _build.build_info
-        print(f"  nvcc {info['seconds']:.1f} s (cached={info['cached']}) "
-              f"-> {info['path']}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print("  " + line.strip())
-        report["build"] = {"seconds": info["seconds"], "log": info["log"]}
+        print(f"  nvcc, all libraries together: {info['seconds']:.1f} s")
+        report["build"] = {"seconds": info["seconds"]}
+        for name in _build.LIBRARIES:
+            lib = info[name]
+            print(f"  {name}: {lib['seconds']:.1f} s (cached={lib['cached']})"
+                  f" -> {lib['path']}")
+            for line in lib["log"].splitlines():
+                if "Compiling entry" in line:
+                    print("  " + line.split("'")[1][:60])
+                elif "registers" in line or "spill" in line \
+                        or "error" in line:
+                    print("    " + line.strip())
+            report["build"][name] = {"seconds": lib["seconds"],
+                                     "log": lib["log"]}
         return True
 
     if not build():
@@ -245,20 +280,110 @@ def main() -> int:
 
     compare()
 
-    main_launches = dict.fromkeys(F.LAUNCHES, 0)
+    def plant_bound(batch, n_steps, substeps, stages, record_every, tables,
+                    bits=False):
+        """``(bound_ms, bound_by)`` of one B3 launch: its operations over
+        the FP32 peak against its bytes over the memory rate."""
+        ops_ms = FP.plant_ops(batch, 20, n_steps, substeps, stages,
+                              philox=not bits) / FP32_PEAK * 1e3
+        bytes_ms = FP.plant_bytes(
+            batch, 20, n_steps, record_every,
+            sum(x.shape[0] for x in tables.lead), tables.scheduled,
+            bits) / HBM_RATE * 1e3
+        return max(ops_ms, bytes_ms), \
+            "operations" if ops_ms >= bytes_ms else "bytes"
 
-    def on_main_path(name, run, reps):
+    # ---- 3b. kernel B3 against its plain version --------------------------
+    @phase("B3 vs plain")
+    def compare_plant():
+        rows = []
+
+        def held(d, tol):
+            return d["max_abs_err"] <= tol and d["nan_equal"] \
+                and d["ints_equal"]
+
+        for name, case in K.B3_CASES.items():
+            tol = K.TOL[case.get("dtype", f32)]
+            (plant, readings), d = K.b3_vs_plain(case, dev)
+            values = torch.stack([v.reshape(v.shape[0], -1)
+                                  for v in readings.values()])
+            nan_share = float(torch.isnan(values).double().mean())
+            rows.append(dict(case=name, nan_share=nan_share, **d))
+            check(held(d, tol)
+                  and bool(torch.isfinite(plant.reactor.pH).all()),
+                  f"B3 {name} x{K.B3_STEPS}: max|kernel-plain| "
+                  f"{d['max_abs_err']:.3e} <= {tol:.0e} over state, carries,"
+                  f" rings, readings; NaN positions equal: {d['nan_equal']}; "
+                  f"integer carries equal: {d['ints_equal']}; "
+                  f"{nan_share:.3f} of readings NaN")
+        d = K.b3_chained(dev)
+        rows.append(dict(case="chained plain-kernel-plain", **d))
+        check(held(d, K.TOL[f32]),
+              "B3 chained plain -> kernel -> plain == plain x3 (8x5, 3x20 "
+              f"steps, per-plant delays): max abs diff {d['max_abs_err']:.3e}"
+              f" <= {K.TOL[f32]:.0e}; NaN positions equal: {d['nan_equal']}")
+        for n_zones, n_plants, integrator in ((20, 1, "rk4"),
+                                              (20, 64, "fast")):
+            check(K.b3_constant_schedule_equals_constant(
+                n_zones, n_plants, dev, integrator=integrator),
+                f"B3 constant schedule == constant forcing exactly, "
+                f"{integrator} {n_plants}x{n_zones}")
+        stats = K.philox_statistics(dev)
+        check(stats["words_equal_plain"], "Philox: the kernel's words equal "
+              f"the plain integer-arithmetic stream ({stats['count']} words)")
+        for name, (centre, half_width) in K.PHILOX_BOUNDS.items():
+            check(abs(stats[name] - centre) <= half_width,
+                  f"Philox {name} {stats[name]:.6f} within {centre:.6g} +- "
+                  f"{half_width:.1e} ({stats['count']} draws)")
+        report["compare_b3"] = rows
+        report["philox"] = stats
+
+        # main-path shapes, float32, Philox, timed: the kernels line
+        m, s = K.plant_plan(20, "rk4")
+        for n_plants, n_steps in ((1, 100), (4096, 50)):
+            params, plant = K.plant_case(20, n_plants, f32, dev)
+            tables = FP.build_tables(params, plant, K.BC, dt=DT,
+                                     n_steps=n_steps)
+            kw = dict(dt=DT, substeps=m, n_steps=n_steps, stages=s,
+                      record_every=10, seed=7)
+            FP.plant_kernel(tables, **kw)                   # warm-up
+            ms, got = timed(lambda: FP.plant_kernel(tables, **kw), reps=5)
+            plain_ms, ref = timed(lambda: FP.plant_plain(tables, **kw))
+            d = K.plant_diff(got, ref)
+            bound, bound_by = plant_bound(n_plants, n_steps, m, s, 10,
+                                          tables)
+            check(held(d, K.TOL[f32]),
+                  f"B3 float32 rk4 ({m}x4) {n_plants}x20 x{n_steps} Philox: "
+                  f"max|kernel-plain| {d['max_abs_err']:.3e}; kernel "
+                  f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} "
+                  f"ms ({bound_by})")
+            report[f"b3_main_shape_{n_plants}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                **d)
+        kernels["plant_rollout_fused"].update(
+            max_abs_err=d["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by)
+        return True
+
+    compare_plant()
+
+    main_launches = dict.fromkeys(KERNELS, 0)
+
+    def on_main_path(name, run, reps, launches_per_call=1):
         """A warm-up and ``reps`` timed calls of entry point ``name``, with
         every launch count zeroed just before and read just after: each
-        call must have launched kernel ``name`` once and no other kernel."""
+        call must have launched kernel ``name`` once (``launches_per_call``
+        times where ``run`` chains calls) and no other kernel."""
         F.reset_launch_counts()
+        FP.reset_launch_counts()
         run()                                                # warm-up
         ms, out = timed(run, reps=reps)
-        counts = dict(F.LAUNCHES)
+        counts = {**F.LAUNCHES, **FP.LAUNCHES}
         for kernel, n in counts.items():
             main_launches[kernel] += n
-        want = {kernel: (1 + reps) * (kernel == name) for kernel in counts}
-        check(counts == want, f"{name}: launches {counts} for {1 + reps} "
+        calls = (1 + reps) * launches_per_call
+        want = {kernel: calls * (kernel == name) for kernel in counts}
+        check(counts == want, f"{name}: launches {counts} for {calls} "
               "calls")
         return ms, out
 
@@ -352,6 +477,192 @@ def main() -> int:
         return True
 
     scheduled()
+
+    # ---- 5b. the instrumented main path -------------------------------------
+    @phase("main path: instrumented plant")
+    def plant_main():
+        name = "plant_rollout_fused"
+        out = {}
+        cfg = R.ReactorConfiguration(volume=1000, height=2.0, diameter=0.798,
+                                     n_zones=20)
+        m_rk4 = R.default_substeps(cfg, DT)
+        m_rkc, s_rkc = R.default_rkc_plan(cfg, DT, mode="fast")
+        params, plant = P.make_plant(cfg, dtype=f32, device=dev)
+        bc = R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.2,
+                                  inlet_chlorine=0.5, acid_flow_rate=0.1)
+
+        def finite_state(p):
+            return all(bool(torch.isfinite(x).all()) for x in (
+                p.reactor.pH, p.reactor.chlorine, p.reactor.temperature))
+
+        def alone(params, plant, boundary, m, s, n_steps, record_every):
+            """Kernel B3 alone, and the physics alone (B1 or B2) on the
+            same tables, outside the launch-count windows: ``(B3 ms,
+            physics ms, bound ms, bound by)``."""
+            tables = FP.build_tables(params, plant, boundary, dt=DT,
+                                     n_steps=n_steps)
+            kw = dict(dt=DT, substeps=m, stages=s)
+            b3_ms, _ = timed(lambda: FP.plant_kernel(
+                tables, n_steps=n_steps, record_every=record_every, seed=7,
+                **kw))
+            y = (tables.ph, tables.cl, tables.t)
+            if tables.scheduled:
+                physics_ms, _ = timed(lambda: F.scheduled_kernel(
+                    tables.ptab, tables.forcing, *y, **kw))
+            else:
+                physics_ms, _ = timed(lambda: F.rollout_kernel(
+                    tables.ptab, tables.forcing, *y, n_steps=n_steps, **kw))
+            batch = tables.ph.shape[0]
+            bound, bound_by = plant_bound(batch, n_steps, m, s, record_every,
+                                          tables)
+            return b3_ms, physics_ms, bound, bound_by
+
+        # PLANT-1: one 20-zone plant, 16384 steps, final readings only
+        n = 16384
+        t_axis = np.arange(n)
+        sched = R.BoundaryConditions(
+            inlet_flow_rate=(5.0 + 2.0 * np.sin(2 * np.pi * t_axis / 17.0)
+                             ).astype(np.float32),
+            inlet_pH=7.2,
+            inlet_chlorine=np.where(t_axis % 10 < 5, 0.5, 1.5
+                                    ).astype(np.float32),
+            acid_flow_rate=np.where(t_axis % 8 < 4, 0.0, 0.3
+                                    ).astype(np.float32))
+        for tag, boundary, m, s in (("rk4", bc, m_rk4, None),
+                                    ("fast", bc, m_rkc, s_rkc),
+                                    ("sched", sched, m_rk4, None)):
+            def run():
+                return FP.plant_rollout_fused(
+                    params, plant, boundary, dt=DT, substeps=m, stages=s,
+                    n_steps=n, record_every=n, seed=7)
+            ms, (final, readings) = on_main_path(name, run, 2)
+            b3_ms, physics_ms, bound, bound_by = alone(
+                params, plant, boundary, m, s, n, n)
+            n_finite = sum(bool(torch.isfinite(v).all())
+                           for v in readings.values())
+            out[f"PLANT-1_{tag}"] = dict(
+                steps=n, substeps=m, stages=s, wrapper_ms=ms,
+                kernel_ms=b3_ms, physics_ms=physics_ms, bound_ms=bound,
+                bound_by=bound_by, steps_per_s=n / (ms / 1e3),
+                sensor_share=1.0 - physics_ms / b3_ms,
+                finite_final_readings=n_finite)
+            check(finite_state(final) and final.reactor.pH.shape == (20,)
+                  and float(final.reactor.time) == float(n)
+                  and readings["pH_outlet"].shape == (1,),
+                  f"PLANT-1 {tag} ({m}x{s or 4}) 1x20 x{n}: "
+                  f"{n / (ms / 1e3):.4e} steps/s; wrapper {ms:.2f} ms, "
+                  f"kernel {b3_ms:.2f} ms, physics alone {physics_ms:.2f} ms"
+                  f" (sensor phase {1.0 - physics_ms / b3_ms:.1%}), bound "
+                  f"{bound:.5f} ms ({bound_by}; one block: latency-bound); "
+                  f"{n_finite}/7 final readings finite")
+
+        def run_auto():
+            return P.plant_rollout_auto(params, plant, bc, DT, m_rkc, n,
+                                        record=False, stages=s_rkc, seed=7)
+        ms, (final, none) = on_main_path(name, run_auto, 1)
+        out["PLANT-1_fast_auto"] = dict(steps=n, wrapper_ms=ms,
+                                        steps_per_s=n / (ms / 1e3))
+        check(none is None and finite_state(final),
+              f"PLANT-1 fast through plant_rollout_auto: {n / (ms / 1e3):.4e}"
+              f" steps/s ({ms:.2f} ms)")
+
+        # HIL-3600: hourly scheduled segments recorded every minute, chained
+        seg, rec = 3600, 60
+        hours = np.arange(2 * seg, dtype=np.float64) / 3600.0
+        day = dict(
+            inlet_flow_rate=(5.0 + 2.0 * np.sin(2 * np.pi * (hours - 7)
+                                                / 24.0)).astype(np.float32),
+            inlet_pH=7.4, inlet_chlorine=0.3,
+            inlet_temperature=(18.0 + 5.0 * np.sin(
+                2 * np.pi * (hours - 14) / 24.0)).astype(np.float32),
+            acid_flow_rate=np.where((hours % 1.0) < 0.1, 0.25, 0.0
+                                    ).astype(np.float32),
+            chlorine_flow_rate=np.where((hours > 11) & (hours < 13), 0.3,
+                                        0.05).astype(np.float32),
+            ambient_temperature=15.0, heat_loss_coefficient=50.0)
+        segments = [R.BoundaryConditions(**{
+            k: (v[i * seg:(i + 1) * seg] if np.ndim(v) else v)
+            for k, v in day.items()}) for i in range(2)]
+
+        def run_hil():
+            p, series = plant, []
+            for i, boundary in enumerate(segments):
+                p, readings = FP.plant_rollout_fused(
+                    params, p, boundary, dt=DT, substeps=m_rk4, n_steps=seg,
+                    record_every=rec, seed=7 + i)
+                series.append(readings)
+            return p, series
+        ms, (final, series) = on_main_path(name, run_hil, 2,
+                                           launches_per_call=2)
+        b3_ms, physics_ms, bound, bound_by = alone(
+            params, plant, segments[0], m_rk4, None, seg, rec)
+        finite = float(torch.isfinite(torch.stack(
+            [v for r in series for v in r.values()])).double().mean())
+        out["HIL-3600"] = dict(
+            segment_steps=seg, record_every=rec, substeps=m_rk4,
+            segment_wrapper_ms=ms / 2, kernel_ms=b3_ms,
+            physics_ms=physics_ms, bound_ms=bound, bound_by=bound_by,
+            steps_per_s=2 * seg / (ms / 1e3), finite_reading_share=finite)
+        check(finite_state(final) and float(final.reactor.time) == 2.0 * seg
+              and series[1]["temp_outlet"].shape == (seg // rec,)
+              and int(final.ph_outlet.base.line_count) == 31,
+              f"HIL-3600 rk4 ({m_rk4}x4) 1x20, 2 chained segments x{seg} "
+              f"recorded every {rec}: {2 * seg / (ms / 1e3):.4e} steps/s; "
+              f"{ms / 2:.2f} ms per segment, kernel {b3_ms:.2f} ms, physics "
+              f"alone {physics_ms:.2f} ms, bound {bound:.5f} ms ({bound_by});"
+              f" {finite:.3f} of readings finite")
+
+        # PLANT-4096: the instrumented ensemble
+        n_plants, n_steps, rec = 4096, 2000, 100
+        base = R.ReactorConfiguration(n_zones=20)
+        m = R.default_substeps(base, DT)
+        t0 = time.perf_counter()
+        bparams, bplant = P.make_plant_batch(base, n_plants, seed=1,
+                                             dtype=f32, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def run_batch():
+            return FP.plant_rollout_fused(
+                bparams, bplant, bc, dt=DT, substeps=m, n_steps=n_steps,
+                record_every=rec, seed=7)
+        ms, (final, readings) = on_main_path(name, run_batch, 2)
+        b3_ms, physics_ms, bound, bound_by = alone(
+            bparams, bplant, bc, m, None, n_steps, rec)
+        share = torch.isfinite(readings["pH_outlet"]).double().mean(dim=1)
+        rate = n_plants * n_steps / (ms / 1e3)
+        out["PLANT-4096"] = dict(
+            plants=n_plants, steps=n_steps, record_every=rec, substeps=m,
+            setup_s=setup_s, wrapper_ms=ms, kernel_ms=b3_ms,
+            physics_ms=physics_ms, bound_ms=bound, bound_by=bound_by,
+            plant_steps_per_s=rate, sensor_share=1.0 - physics_ms / b3_ms,
+            finite_ph_outlet_share_by_record=share.tolist())
+        check(finite_state(final)
+              and readings["pH_outlet"].shape == (n_steps // rec, n_plants)
+              and float(share[0]) > 0.9
+              and bool((share[1:] <= share[:-1]).all()),
+              f"PLANT-4096 rk4 ({m}x4) 4096x20 x{n_steps} recorded every "
+              f"{rec}: {rate:.4e} plant-steps/s; set-up {setup_s:.3f} s, "
+              f"wrapper {ms:.2f} ms, kernel {b3_ms:.2f} ms, physics alone "
+              f"{physics_ms:.2f} ms (sensor phase "
+              f"{1.0 - physics_ms / b3_ms:.1%}), bound {bound:.3f} ms "
+              f"({bound_by}); finite pH_outlet readings {float(share[0]):.4f}"
+              f" at step {rec} falling to {float(share[-1]):.4f} at step "
+              f"{n_steps} (faults latch)")
+        report["plant"] = out
+
+        # the port's entry(): one plant step on the card
+        fn, args = port_entry.entry()
+        ph, cl_out, ph_in = fn(*args)
+        torch.cuda.synchronize()
+        check(ph.is_cuda and ph.shape == (20,) and all(
+            bool(torch.isfinite(x).all()) for x in (ph, cl_out, ph_in)),
+            f"entry(): one plant_step on the card, pH[20] finite, chlorine "
+            f"outlet reading {float(cl_out):.4f} mg/L, pH inlet reading "
+            f"{float(ph_in):.4f}")
+        return True
+
+    plant_main()
 
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")

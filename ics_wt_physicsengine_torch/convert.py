@@ -1,11 +1,13 @@
 """
-Carry parameters, states and boundary conditions across from NumPy.
+Carry parameters, states, boundary conditions, sensors and whole plants
+across from NumPy.
 
-Each function takes a mapping from field name to NumPy value (``chem``
-nested as a mapping) -- for example ``dataclasses.asdict`` of the JAX
-package's objects -- and returns the port's objects on ``device``
-(``None``: the CUDA card) in ``dtype`` (default float32). Values are cast to
-``dtype`` in NumPy first, so float64 inputs and outputs agree bit for bit.
+Each function takes a mapping from field name to NumPy value (``chem``, a
+sensor's ``base`` and a plant's members nested as mappings) -- for example
+``dataclasses.asdict`` of the JAX package's objects -- and returns the
+port's objects on ``device`` (``None``: the CUDA card) in ``dtype`` (default
+float32). Values are cast to ``dtype`` in NumPy first, so float64 inputs and
+outputs agree bit for bit.
 """
 
 from __future__ import annotations
@@ -13,11 +15,17 @@ from __future__ import annotations
 from dataclasses import fields
 
 import numpy as np
+import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.core.chemistry import constants_from_numpy
 from ics_wt_physicsengine_torch.device import (resolve_device,
                                                tensor_from_numpy)
+from ics_wt_physicsengine_torch.sensors import base as SB
+from ics_wt_physicsengine_torch.sensors import chlorine as SC
+from ics_wt_physicsengine_torch.sensors import flow as SF
+from ics_wt_physicsengine_torch.sensors import ph as SP
+from ics_wt_physicsengine_torch.sensors import temperature as ST
 
 
 def params_from_numpy(values, dtype=None, device=None) -> R.ReactorParams:
@@ -78,3 +86,104 @@ def boundary_from_numpy(values, dtype=None,
         kw[f.name] = (float(v) if np.ndim(v) == 0
                       else tensor_from_numpy(v, dtype, dev))
     return R.BoundaryConditions(**kw)
+
+
+# Fields that stay Python values on the sensor dataclasses.
+_STATIC_SENSOR_FIELDS = ("line_capacity", "zone_index", "sensor_type",
+                         "measurement_type")
+
+
+def _sensor_tensor(value, dtype, dev):
+    """A sensor leaf by its NumPy kind: bool stays bool, integers become
+    int32, floats take ``dtype``."""
+    value = np.asarray(value)
+    if value.dtype.kind == "b":
+        return torch.from_numpy(np.array(value)).to(dev)
+    if value.dtype.kind in "iu":
+        return torch.from_numpy(value.astype(np.int32)).to(dev)
+    return tensor_from_numpy(value, dtype, dev)
+
+
+def _sensor_object(cls, base_cls, values, dtype, dev):
+    kw = {}
+    for f in fields(cls):
+        if f.name not in values:
+            continue                  # keeps the dataclass default
+        v = values[f.name]
+        if f.name == "base" and base_cls is not None:
+            kw[f.name] = _sensor_object(base_cls, None, v, dtype, dev)
+        elif f.name in _STATIC_SENSOR_FIELDS or v is None:
+            kw[f.name] = v
+        else:
+            kw[f.name] = _sensor_tensor(v, dtype, dev)
+    return cls(**kw)
+
+
+def sensor_params_from_numpy(cls, values, dtype=None, device=None):
+    """Sensor parameters of class ``cls`` (``sensors.base.SensorParams`` or
+    an overlay's params class, whose ``base`` entry nests) from a mapping
+    of its fields. ``line_capacity``, ``zone_index``, ``sensor_type`` and
+    ``measurement_type`` are Python values."""
+    base_cls = None if cls is SB.SensorParams else SB.SensorParams
+    return _sensor_object(cls, base_cls, values, dtype,
+                          resolve_device(device))
+
+
+def sensor_carry_from_numpy(cls, values, dtype=None, device=None):
+    """A sensor carry of class ``cls`` (``sensors.base.SensorCarry`` or an
+    overlay's carry class) from a mapping of its fields. A ``key`` entry
+    (the JAX package's carried PRNG key) is ignored: the port's carries
+    hold no generator state."""
+    base_cls = None if cls is SB.SensorCarry else SB.SensorCarry
+    return _sensor_object(cls, base_cls, values, dtype,
+                          resolve_device(device))
+
+
+_SENSOR_CLASSES = {
+    "ph_inlet": (SP.PHSensorParams, SP.PHSensorCarry),
+    "ph_outlet": (SP.PHSensorParams, SP.PHSensorCarry),
+    "chlorine_inlet": (SC.ChlorineSensorParams, SC.ChlorineSensorCarry),
+    "chlorine_outlet": (SC.ChlorineSensorParams, SC.ChlorineSensorCarry),
+    "flow_main": (SF.FlowSensorParams, SF.FlowSensorCarry),
+    "temp_inlet": (ST.TemperatureSensorParams, ST.TemperatureSensorCarry),
+    "temp_outlet": (ST.TemperatureSensorParams, ST.TemperatureSensorCarry),
+}
+_EXTENSION_SENSORS = ("ammonia_outlet", "oxygen_outlet", "turbidity_outlet")
+
+
+def _reject_extension_sensors(values):
+    for name in _EXTENSION_SENSORS:
+        if values.get(name) is not None:
+            raise NotImplementedError(
+                f"the {name} instrument belongs to an extension axis that "
+                "is not ported to the PyTorch package yet")
+
+
+def plant_params_from_numpy(values, dtype=None, device=None):
+    """``models.plant.PlantParams`` from a nested mapping: ``reactor`` as
+    ``params_from_numpy`` takes it, each sensor as
+    ``sensor_params_from_numpy`` does."""
+    from ics_wt_physicsengine_torch.models.plant import PlantParams
+
+    _reject_extension_sensors(values)
+    return PlantParams(
+        reactor=params_from_numpy(values["reactor"], dtype=dtype,
+                                  device=device),
+        **{name: sensor_params_from_numpy(classes[0], values[name],
+                                          dtype=dtype, device=device)
+           for name, classes in _SENSOR_CLASSES.items()})
+
+
+def plant_state_from_numpy(values, dtype=None, device=None):
+    """``models.plant.PlantState`` from a nested mapping: ``reactor`` as
+    ``state_from_numpy`` takes it, each sensor as
+    ``sensor_carry_from_numpy`` does."""
+    from ics_wt_physicsengine_torch.models.plant import PlantState
+
+    _reject_extension_sensors(values)
+    return PlantState(
+        reactor=state_from_numpy(values["reactor"], dtype=dtype,
+                                 device=device),
+        **{name: sensor_carry_from_numpy(classes[1], values[name],
+                                         dtype=dtype, device=device)
+           for name, classes in _SENSOR_CLASSES.items()})

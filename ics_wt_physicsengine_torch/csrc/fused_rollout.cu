@@ -27,16 +27,6 @@
 
 namespace wt {
 
-// RKC2 stage coefficients, folded in double on the host: for stage j >= 2,
-//   y_j = c0 y0 + mu y_{j-1} + nu y_{j-2} + muth f_{j-1} + gmth f0
-// and y_1 = y0 + mu1h f0 (mu1h, muth, gmth already carry the substep h).
-template <typename S>
-struct RkcTable {
-  S mu1h;
-  S c0[kMaxStages + 1], mu[kMaxStages + 1], nu[kMaxStages + 1],
-      muth[kMaxStages + 1], gmth[kMaxStages + 1];
-};
-
 template <typename S, bool kRkc, bool kScheduled>
 __global__ void __launch_bounds__(kThreadsPerBlock)
 rollout_kernel(const S* __restrict__ params, const S* __restrict__ forcing,
@@ -47,7 +37,7 @@ rollout_kernel(const S* __restrict__ params, const S* __restrict__ forcing,
                S* __restrict__ ph_traj, S* __restrict__ cl_traj,
                S* __restrict__ t_traj, int batch, int n_zones,
                int plants_per_block, int n_steps, int substeps,
-               int record_every, S h_half, S h_full, S h_sixth) {
+               int record_every, StepSizes<S> h) {
   __shared__ S exchange_buf[2][4][kThreadsPerBlock];
   __shared__ RkcTable<S> rkc;
   if (kRkc) {
@@ -81,56 +71,7 @@ rollout_kernel(const S* __restrict__ params, const S* __restrict__ forcing,
       b = boundary_terms(p, [&](int c) { return __ldg(row + c); });
     }
     for (int sub = 0; sub < substeps; ++sub) {
-      if (!kRkc) {
-        // classical RK4; acc keeps the reference's summation order
-        // ((k1 + 2 k2) + 2 k3) + k4
-        S k_ph, k_cl, k_t;
-        deriv(p, b, x, ph, cl, t, k_ph, k_cl, k_t);
-        S a_ph = k_ph, a_cl = k_cl, a_t = k_t;
-        deriv(p, b, x, ph + h_half * k_ph, cl + h_half * k_cl,
-              t + h_half * k_t, k_ph, k_cl, k_t);
-        a_ph = a_ph + S(2.0) * k_ph;
-        a_cl = a_cl + S(2.0) * k_cl;
-        a_t = a_t + S(2.0) * k_t;
-        deriv(p, b, x, ph + h_half * k_ph, cl + h_half * k_cl,
-              t + h_half * k_t, k_ph, k_cl, k_t);
-        a_ph = a_ph + S(2.0) * k_ph;
-        a_cl = a_cl + S(2.0) * k_cl;
-        a_t = a_t + S(2.0) * k_t;
-        deriv(p, b, x, ph + h_full * k_ph, cl + h_full * k_cl,
-              t + h_full * k_t, k_ph, k_cl, k_t);
-        a_ph = a_ph + k_ph;
-        a_cl = a_cl + k_cl;
-        a_t = a_t + k_t;
-        ph = ph + h_sixth * a_ph;
-        cl = cl + h_sixth * a_cl;
-        t = t + h_sixth * a_t;
-      } else {
-        // s-stage RKC2 (ops/integrators.py::rkc2_step)
-        S f0_ph, f0_cl, f0_t;
-        deriv(p, b, x, ph, cl, t, f0_ph, f0_cl, f0_t);
-        S m2_ph = ph, m2_cl = cl, m2_t = t;  // y_{j-2}
-        S m1_ph = ph + rkc.mu1h * f0_ph;     // y_{j-1}
-        S m1_cl = cl + rkc.mu1h * f0_cl;
-        S m1_t = t + rkc.mu1h * f0_t;
-        for (int j = 2; j <= stages; ++j) {
-          S f_ph, f_cl, f_t;
-          deriv(p, b, x, m1_ph, m1_cl, m1_t, f_ph, f_cl, f_t);
-          const S c0 = rkc.c0[j], mu = rkc.mu[j], nu = rkc.nu[j],
-                  muth = rkc.muth[j], gmth = rkc.gmth[j];
-          const S n_ph = c0 * ph + mu * m1_ph + nu * m2_ph + muth * f_ph +
-                         gmth * f0_ph;
-          const S n_cl = c0 * cl + mu * m1_cl + nu * m2_cl + muth * f_cl +
-                         gmth * f0_cl;
-          const S n_t =
-              c0 * t + mu * m1_t + nu * m2_t + muth * f_t + gmth * f0_t;
-          m2_ph = m1_ph; m2_cl = m1_cl; m2_t = m1_t;
-          m1_ph = n_ph; m1_cl = n_cl; m1_t = n_t;
-        }
-        ph = m1_ph;
-        cl = m1_cl;
-        t = m1_t;
-      }
+      substep<S, kRkc>(p, b, x, rkc, stages, h, ph, cl, t);
     }
     bound(ph, cl, t);
     if (record_every > 0 && (i + 1) % record_every == 0 && active) {
@@ -163,22 +104,7 @@ int launch(const void* params, const void* forcing, const double* rkc_host,
   const dim3 block(plants_per_block * n_zones);
   const dim3 grid((batch + plants_per_block - 1) / plants_per_block);
 
-  // rkc_host: [mu1h, then (c0, mu, nu, muth, gmth) for j = 0..stages]
-  RkcTable<S> rkc{};
-  if (stages != 0) {
-    rkc.mu1h = static_cast<S>(rkc_host[0]);
-    for (int j = 0; j <= stages; ++j) {
-      const double* r = rkc_host + 1 + 5 * j;
-      rkc.c0[j] = static_cast<S>(r[0]);
-      rkc.mu[j] = static_cast<S>(r[1]);
-      rkc.nu[j] = static_cast<S>(r[2]);
-      rkc.muth[j] = static_cast<S>(r[3]);
-      rkc.gmth[j] = static_cast<S>(r[4]);
-    }
-  }
-  const S h_half = static_cast<S>(0.5 * h_step);
-  const S h_full = static_cast<S>(h_step);
-  const S h_sixth = static_cast<S>(h_step / 6.0);
+  const RkcTable<S> rkc = rkc_from_host<S>(rkc_host, stages);
   auto kernel = stages == 0 ? rollout_kernel<S, false, kScheduled>
                             : rollout_kernel<S, true, kScheduled>;
   kernel<<<grid, block, 0, stream>>>(
@@ -187,7 +113,7 @@ int launch(const void* params, const void* forcing, const double* rkc_host,
       static_cast<const S*>(t0), static_cast<S*>(ph), static_cast<S*>(cl),
       static_cast<S*>(t), static_cast<S*>(ph_traj), static_cast<S*>(cl_traj),
       static_cast<S*>(t_traj), batch, n_zones, plants_per_block, n_steps,
-      substeps, record_every, h_half, h_full, h_sixth);
+      substeps, record_every, step_sizes<S>(h_step));
   return static_cast<int>(cudaGetLastError());
 }
 

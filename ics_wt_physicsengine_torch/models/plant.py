@@ -1,0 +1,475 @@
+"""
+Integrated plant model: physics + the full sensor suite in one step (port
+of ``ics_wt_physicsengine_tpu/models/plant.py``).
+
+The reactor advances dt, then all seven instruments read the new state
+through their carried pipelines (delays, drift, fouling, faults). Every
+function is natively batched: a plant batch is the same ``PlantParams`` /
+``PlantState`` structure with leading ``[n_plants]`` axes.
+
+Randomness is explicit. The sensor carries hold no generator state: a step
+takes pre-drawn ``rand=`` or a ``torch.Generator``, and the fused kernel
+takes an integer ``seed``.
+
+The three extension instruments (ammonia, oxygen, turbidity) are not ported
+yet: their fields stay ``None`` and a configuration that enables their axis
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, fields, replace
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ics_wt_physicsengine_torch.core import reactor as R
+from ics_wt_physicsengine_torch.device import DEFAULT_DTYPE, resolve_device
+from ics_wt_physicsengine_torch.sensors import base as SB
+from ics_wt_physicsengine_torch.sensors import chlorine as SC
+from ics_wt_physicsengine_torch.sensors import flow as SF
+from ics_wt_physicsengine_torch.sensors import ph as SP
+from ics_wt_physicsengine_torch.sensors import temperature as ST
+from ics_wt_physicsengine_torch.sensors.types import (InstallationQuality,
+                                                      SampleLine)
+from ics_wt_physicsengine_torch.utils.dispatch import map_tensors
+
+
+@dataclass(frozen=True)
+class PlantParams:
+    reactor: R.ReactorParams
+    ph_inlet: SP.PHSensorParams
+    ph_outlet: SP.PHSensorParams
+    chlorine_inlet: SC.ChlorineSensorParams
+    chlorine_outlet: SC.ChlorineSensorParams
+    flow_main: SF.FlowSensorParams
+    temp_inlet: ST.TemperatureSensorParams
+    temp_outlet: ST.TemperatureSensorParams
+    # extension instruments, not ported yet
+    ammonia_outlet: Optional[object] = None
+    oxygen_outlet: Optional[object] = None
+    turbidity_outlet: Optional[object] = None
+
+
+@dataclass
+class PlantState:
+    reactor: R.ReactorState
+    ph_inlet: SP.PHSensorCarry
+    ph_outlet: SP.PHSensorCarry
+    chlorine_inlet: SC.ChlorineSensorCarry
+    chlorine_outlet: SC.ChlorineSensorCarry
+    flow_main: SF.FlowSensorCarry
+    temp_inlet: ST.TemperatureSensorCarry
+    temp_outlet: ST.TemperatureSensorCarry
+    ammonia_outlet: Optional[object] = None
+    oxygen_outlet: Optional[object] = None
+    turbidity_outlet: Optional[object] = None
+
+
+# (reading name, PlantParams/PlantState attribute) in reading order
+SENSOR_NAMES = (("pH_inlet", "ph_inlet"), ("pH_outlet", "ph_outlet"),
+                ("chlorine_inlet", "chlorine_inlet"),
+                ("chlorine_outlet", "chlorine_outlet"),
+                ("flow_main", "flow_main"), ("temp_inlet", "temp_inlet"),
+                ("temp_outlet", "temp_outlet"))
+
+
+def make_plant(config: R.ReactorConfiguration, dtype=DEFAULT_DTYPE,
+               warmed_up: bool = True, t0: float = 0.0, device=None
+               ) -> Tuple[PlantParams, PlantState]:
+    """Build the canonical 7-sensor plant on ``device`` (``None``: the CUDA
+    card).
+
+    ``warmed_up=True`` backdates power-on so instruments read immediately
+    (otherwise the first 1800 s of readings are warm-up NaN). ``t0`` anchors
+    the warm start: calibration age and warm-up count from it."""
+    dev = resolve_device(device)
+    kw = dict(dtype=dtype, device=dev)
+    reactor_params = R.make_params(config, **kw)   # rejects extension axes
+
+    good_installation = InstallationQuality(
+        flow_velocity=0.5, air_bubble_frequency=0.0, grounding_quality=0.9,
+        pipe_vibration_g=0.1, ambient_temperature=30.0)
+    line = SampleLine(volume_mL=250, flow_rate_mL_min=500, ambient_temp=25.0)
+
+    ph_in_p = SP.make_ph_params(zone_index=0, sample_line=line,
+                                installation=good_installation, **kw)
+    ph_out_p = SP.make_ph_params(zone_index=-1, sample_line=line,
+                                 installation=good_installation, **kw)
+    cl_in_p = SC.make_chlorine_params(zone_index=0,
+                                      sensor_type=SC.AMPEROMETRIC,
+                                      installation=good_installation, **kw)
+    cl_out_p = SC.make_chlorine_params(zone_index=-1, sensor_type=SC.DPD,
+                                       installation=good_installation, **kw)
+    fl_p = SF.make_flow_params(sensor_type=SF.MAGNETIC,
+                               full_scale=config.flow_rate * 2.0,
+                               installation=good_installation, **kw)
+    t_in_p = ST.make_temperature_params(zone_index=0,
+                                        sensor_type=ST.RTD_PT100,
+                                        sample_line=line,
+                                        installation=good_installation, **kw)
+    t_out_p = ST.make_temperature_params(zone_index=-1,
+                                         sensor_type=ST.RTD_PT100,
+                                         sample_line=line,
+                                         installation=good_installation,
+                                         **kw)
+
+    params = PlantParams(
+        reactor=reactor_params,
+        ph_inlet=ph_in_p, ph_outlet=ph_out_p,
+        chlorine_inlet=cl_in_p, chlorine_outlet=cl_out_p,
+        flow_main=fl_p, temp_inlet=t_in_p, temp_outlet=t_out_p)
+
+    def backdate(carry, base_params):
+        if not warmed_up:
+            return carry
+        t_on = t0 - float(base_params.warmup_time_s.cpu().numpy()) - 1.0
+        b = carry.base
+        return replace(carry, base=replace(
+            b,
+            power_on_time=SB._as(t_on, b.power_on_time),
+            last_calibration_time=SB._as(t0, b.power_on_time),
+            has_calibration=torch.ones_like(b.has_calibration)))
+
+    state = PlantState(
+        reactor=R.make_initial_state(config, **kw),
+        ph_inlet=backdate(SP.make_ph_carry(ph_in_p, **kw), ph_in_p.base),
+        ph_outlet=backdate(SP.make_ph_carry(ph_out_p, **kw), ph_out_p.base),
+        chlorine_inlet=backdate(SC.make_chlorine_carry(cl_in_p, **kw),
+                                cl_in_p.base),
+        chlorine_outlet=backdate(SC.make_chlorine_carry(cl_out_p, **kw),
+                                 cl_out_p.base),
+        flow_main=backdate(SF.make_flow_carry(fl_p, **kw), fl_p.base),
+        temp_inlet=backdate(ST.make_temperature_carry(t_in_p, **kw),
+                            t_in_p.base),
+        temp_outlet=backdate(ST.make_temperature_carry(t_out_p, **kw),
+                             t_out_p.base))
+    return params, state
+
+
+def _zone(arr, idx: int):
+    return arr[..., idx]
+
+
+def plant_step(params: PlantParams, plant: PlantState,
+               boundary: R.BoundaryConditions, dt: float, substeps: int,
+               stages=None, rand=None, delayed=None, generator=None
+               ) -> Tuple[PlantState, Dict[str, SB.SensorOutput]]:
+    """Advance physics by dt, then read all seven instruments; one plant or
+    a batch. ``stages`` selects the RKC2 integrator for the physics.
+    ``rand``: optional ``{sensor_name: (normals, uniforms)}`` supplying
+    every instrument's randomness (the sensor modules'
+    N_NORMALS/N_UNIFORMS layouts); a sensor it does not name draws from
+    ``generator``. ``delayed``: optional ``{sensor_name: value}`` of
+    externally resolved sample-line taps (pH/temperature sensors only); the
+    caller must pass params with ``line_capacity=0`` for those sensors."""
+    state = R.step(params.reactor, plant.reactor, boundary, dt=dt,
+                   substeps=substeps, stages=stages)
+    return _read_all(params, state, plant, rand=rand, delayed=delayed,
+                     generator=generator)
+
+
+def _read_all(params: PlantParams, state: R.ReactorState, plant: PlantState,
+              rand=None, delayed=None, generator=None
+              ) -> Tuple[PlantState, Dict[str, SB.SensorOutput]]:
+    """Read all seven instruments against an already-stepped reactor state
+    (the sensor half of ``plant_step``)."""
+    t = state.time
+    rand = rand or {}
+    delayed = delayed or {}
+
+    def ph(name, p, c):
+        return SP.ph_read(
+            p, c, _zone(state.pH, p.zone_index),
+            _zone(state.temperature, p.zone_index), t, rand=rand.get(name),
+            delayed_true=delayed.get(name), generator=generator)
+
+    def chlorine(name, p, c):
+        # total-chlorine sensors respond to free + combined; no ported
+        # state carries a combined species yet
+        return SC.chlorine_read(
+            p, c, _zone(state.chlorine, p.zone_index),
+            _zone(state.pH, p.zone_index), t, combined_zone=None,
+            rand=rand.get(name), generator=generator)
+
+    def temperature(name, p, c):
+        return ST.temperature_read(
+            p, c, _zone(state.temperature, p.zone_index), t,
+            rand=rand.get(name), delayed_true=delayed.get(name),
+            generator=generator)
+
+    ph_in_c, ph_in = ph("pH_inlet", params.ph_inlet, plant.ph_inlet)
+    ph_out_c, ph_out = ph("pH_outlet", params.ph_outlet, plant.ph_outlet)
+    cl_in_c, cl_in = chlorine("chlorine_inlet", params.chlorine_inlet,
+                              plant.chlorine_inlet)
+    cl_out_c, cl_out = chlorine("chlorine_outlet", params.chlorine_outlet,
+                                plant.chlorine_outlet)
+    fl_c, fl = SF.flow_read(params.flow_main, plant.flow_main,
+                            state.flow_rate, t, rand=rand.get("flow_main"),
+                            generator=generator)
+    t_in_c, t_in = temperature("temp_inlet", params.temp_inlet,
+                               plant.temp_inlet)
+    t_out_c, t_out = temperature("temp_outlet", params.temp_outlet,
+                                 plant.temp_outlet)
+
+    new_plant = PlantState(
+        reactor=state, ph_inlet=ph_in_c, ph_outlet=ph_out_c,
+        chlorine_inlet=cl_in_c, chlorine_outlet=cl_out_c, flow_main=fl_c,
+        temp_inlet=t_in_c, temp_outlet=t_out_c)
+    readings = {
+        "pH_inlet": ph_in, "pH_outlet": ph_out,
+        "chlorine_inlet": cl_in, "chlorine_outlet": cl_out,
+        "flow_main": fl, "temp_inlet": t_in, "temp_outlet": t_out,
+    }
+    return new_plant, readings
+
+
+def _stack_values(records):
+    return {name: torch.stack([r[name] for r in records])
+            for name in records[0]}
+
+
+def plant_rollout(params: PlantParams, plant: PlantState,
+                  boundary: R.BoundaryConditions, dt: float, substeps: int,
+                  n_steps: int, record: bool = True, stages=None,
+                  generator=None):
+    """Loop ``plant_step`` over ``n_steps``. Returns ``(plant, readings)``
+    where readings maps each sensor name to its measured values
+    ``[n_steps, ...]`` (None when ``record=False``)."""
+    records = []
+    for _ in range(n_steps):
+        plant, readings = plant_step(params, plant, boundary, dt, substeps,
+                                     stages=stages, generator=generator)
+        if record:
+            records.append({k: v.value for k, v in readings.items()})
+    return plant, (_stack_values(records) if record and records else None)
+
+
+def _normalize_schedule(schedule: R.BoundaryConditions, device):
+    """``(columns, n_steps)``: the schedule's ``[n_steps]`` fields as tensors
+    on ``device``, scalar fields as they are."""
+    n_steps = R.schedule_length(schedule)
+    columns = {}
+    for f in fields(schedule):
+        x = getattr(schedule, f.name)
+        if getattr(x, "ndim", 0) >= 1:
+            x = torch.as_tensor(x, device=device)
+        columns[f.name] = x
+    return columns, n_steps
+
+
+def _row(columns, i) -> R.BoundaryConditions:
+    return R.BoundaryConditions(**{
+        name: (x[i] if isinstance(x, torch.Tensor) and x.ndim else x)
+        for name, x in columns.items()})
+
+
+def plant_rollout_scheduled(params: PlantParams, plant: PlantState,
+                            schedule: R.BoundaryConditions, dt: float,
+                            substeps: int, record: bool = True,
+                            stages=None, generator=None):
+    """Loop ``plant_step`` over a time-varying boundary schedule (see
+    ``core.reactor.rollout_scheduled``): physics + all seven instruments
+    under scripted forcing."""
+    columns, n_steps = _normalize_schedule(schedule,
+                                           plant.reactor.pH.device)
+    records = []
+    for i in range(n_steps):
+        plant, readings = plant_step(params, plant, _row(columns, i), dt,
+                                     substeps, stages=stages,
+                                     generator=generator)
+        if record:
+            records.append({k: v.value for k, v in readings.items()})
+    return plant, (_stack_values(records) if record else None)
+
+
+def plant_rollout_serve(params: PlantParams, plant: PlantState,
+                        schedule: R.BoundaryConditions, dt: float,
+                        substeps: int, stages=None, generator=None):
+    """One hardware-in-the-loop serving chunk: advance the plant under a
+    per-step boundary schedule, recording the full ``SensorOutput`` every
+    step. Returns ``(final_plant, per_step_readings)`` where every field of
+    ``per_step_readings[name]`` is ``[n_steps, ...]``."""
+    columns, n_steps = _normalize_schedule(schedule,
+                                           plant.reactor.pH.device)
+    records = []
+    for i in range(n_steps):
+        plant, readings = plant_step(params, plant, _row(columns, i), dt,
+                                     substeps, stages=stages,
+                                     generator=generator)
+        records.append(readings)
+    per_step = {
+        name: SB.SensorOutput(**{
+            f.name: torch.stack([getattr(r[name], f.name) for r in records])
+            for f in fields(SB.SensorOutput)})
+        for name in records[0]}
+    return plant, per_step
+
+
+def make_plant_batch(config: R.ReactorConfiguration, n_plants: int,
+                     seed: int = 0, dtype=DEFAULT_DTYPE,
+                     randomize: bool = True, warmed_up: bool = True,
+                     t0: float = 0.0, device=None):
+    """Batched integrated plants: physics params randomized per plant from
+    ``seed`` (``models/monte_carlo.py`` ranges) when ``randomize``, the
+    same sensor configuration for every plant. Returns (params, state) with
+    leading ``[n_plants]`` axes."""
+    from ics_wt_physicsengine_torch.models.monte_carlo import (
+        make_monte_carlo_batch)
+
+    if n_plants < 1:
+        raise ValueError(f"n_plants must be >= 1, got {n_plants}")
+    dev = resolve_device(device)
+    template_p, template_s = make_plant(config, dtype=dtype,
+                                        warmed_up=warmed_up, t0=t0,
+                                        device=dev)
+
+    def bcast(x):
+        return x.expand((n_plants,) + tuple(x.shape)).clone()
+
+    params = map_tensors(bcast, template_p)
+    state = map_tensors(bcast, template_s)
+    if randomize:
+        reactor_params, reactor_states = make_monte_carlo_batch(
+            config, n_plants, seed=seed, dtype=dtype, device=dev)
+        params = replace(params, reactor=reactor_params)
+        state = replace(state, reactor=reactor_states)
+    return params, state
+
+
+def plant_step_batched(params: PlantParams, plant: PlantState,
+                       boundary: R.BoundaryConditions, dt: float,
+                       substeps: int, stages=None, rand=None,
+                       boundary_axes=None, generator=None):
+    """``plant_step`` over the leading plant axis (the step is natively
+    batched). ``rand``: optional externally drawn randomness,
+    ``{sensor: (normals[n, k], uniforms[n, k])}``, see
+    ``draw_packed_rand``. ``boundary_axes=0`` takes a BoundaryConditions
+    whose fields carry a leading ``[n_plants]`` axis (fleet mode: one
+    independently controlled boundary per plant); None broadcasts one
+    boundary."""
+    if boundary_axes not in (None, 0):
+        raise ValueError(f"boundary_axes must be None or 0, got "
+                         f"{boundary_axes!r}")
+    n_plants = plant.reactor.pH.shape[0]
+    for f in fields(boundary):
+        x = getattr(boundary, f.name)
+        ndim = getattr(x, "ndim", 0)
+        if boundary_axes is None and ndim:
+            raise ValueError(f"boundary.{f.name} has a leading axis; pass "
+                             "boundary_axes=0 for per-plant boundaries")
+        if boundary_axes == 0 and (ndim != 1 or x.shape[0] != n_plants):
+            raise ValueError(f"boundary.{f.name} must be [{n_plants}] with "
+                             "boundary_axes=0")
+    return plant_step(params, plant, boundary, dt, substeps, stages=stages,
+                      rand=rand, generator=generator)
+
+
+# Canonical order + per-sensor randomness widths (base layout first, then
+# each overlay's extra draws).
+_RAND_LAYOUT = (
+    ("pH_inlet", SP.N_NORMALS, SP.N_UNIFORMS),
+    ("pH_outlet", SP.N_NORMALS, SP.N_UNIFORMS),
+    ("chlorine_inlet", SC.N_NORMALS, SC.N_UNIFORMS),
+    ("chlorine_outlet", SC.N_NORMALS, SC.N_UNIFORMS),
+    ("flow_main", SF.N_NORMALS, SF.N_UNIFORMS),
+    ("temp_inlet", ST.N_NORMALS, ST.N_UNIFORMS),
+    ("temp_outlet", ST.N_NORMALS, ST.N_UNIFORMS),
+)
+_TOT_N = sum(n for _, n, _ in _RAND_LAYOUT)
+_TOT_U = sum(u for _, _, u in _RAND_LAYOUT)
+
+
+def draw_packed_rand(generator, batch_shape, dtype, device):
+    """All seven instruments' per-read randomness in two generates from one
+    generator; every element is an independent standard draw. Returns the
+    ``rand=`` dict consumed by ``plant_step``/``_read_all``."""
+    batch_shape = tuple(batch_shape)
+    normals = torch.randn(batch_shape + (_TOT_N,), generator=generator,
+                          dtype=dtype, device=device)
+    uniforms = torch.rand(batch_shape + (_TOT_U,), generator=generator,
+                          dtype=dtype, device=device)
+    rand, i, j = {}, 0, 0
+    for name, nn, nu in _RAND_LAYOUT:
+        rand[name] = (normals[..., i:i + nn], uniforms[..., j:j + nu])
+        i, j = i + nn, j + nu
+    return rand
+
+
+def _is_schedule(boundary) -> bool:
+    return any(getattr(getattr(boundary, f.name), "ndim", 0) >= 1
+               for f in fields(boundary))
+
+
+def plant_rollout_auto(params: PlantParams, plant: PlantState,
+                       boundary: R.BoundaryConditions, dt: float,
+                       substeps: int, n_steps: int, record: bool = True,
+                       stages=None, seed: int = 0):
+    """Integrated-plant rollout that picks its path from what it can
+    observe: a plant on the CUDA card whose configuration the fused plant
+    kernel supports (``ops.fused_plant.unsupported_reason`` is None) runs in
+    one launch of that kernel, at any batch size; every other plant takes
+    the ``plant_step`` loop on its own device. A failed launch raises;
+    nothing reroutes after the check.
+
+    ``boundary`` may be constant or a schedule with ``[n_steps]`` fields.
+    Returns ``(new_plant, readings)`` where readings maps each sensor name
+    to its per-step measured values ``[n_steps, ...batch]`` (None when
+    ``record=False``). Randomness comes from ``seed``: the kernel's Philox
+    stream, or a ``torch.Generator`` seeded with it on the loop path; the
+    two are statistically, not bit-, identical."""
+    from ics_wt_physicsengine_torch.ops import fused_plant
+
+    ph = plant.reactor.pH
+    if ph.is_cuda and fused_plant.unsupported_reason(params) is None:
+        new_plant, readings = fused_plant.plant_rollout_fused(
+            params, plant, boundary, dt=dt, substeps=substeps,
+            n_steps=n_steps, stages=stages,
+            record_every=1 if record else n_steps, seed=seed)
+        return new_plant, (readings if record else None)
+    generator = torch.Generator(device=ph.device).manual_seed(seed)
+    if _is_schedule(boundary):
+        if R.schedule_length(boundary) != n_steps:
+            raise ValueError(
+                f"schedule fields have length {R.schedule_length(boundary)};"
+                f" expected n_steps={n_steps}")
+        return plant_rollout_scheduled(params, plant, boundary, dt,
+                                       substeps, record=record,
+                                       stages=stages, generator=generator)
+    return plant_rollout(params, plant, boundary, dt, substeps, n_steps,
+                         record=record, stages=stages, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Named baseline configurations
+# ---------------------------------------------------------------------------
+
+def config1_two_zone() -> R.ReactorConfiguration:
+    """Config 1: single 2-zone CSTR, fixed dt, ideal sensors."""
+    diameter = 2 * math.sqrt(1.0 / (math.pi * 2.0))
+    return R.ReactorConfiguration(volume=1000, height=2.0, diameter=diameter,
+                                  n_zones=2)
+
+
+def config2_stratified_20_zone() -> R.ReactorConfiguration:
+    """Config 2: 20-zone stratified CSTR, Richardson + Corrsin +
+    temperature-dependent kinetics."""
+    return R.ReactorConfiguration(n_zones=20,
+                                  enable_thermal_stratification=True)
+
+
+def config3_full_sensors(dtype=DEFAULT_DTYPE, device=None):
+    """Config 3: full sensor suite on a 5-zone plant (params and state)."""
+    return make_plant(R.ReactorConfiguration(), dtype=dtype, device=device)
+
+
+def config4_monte_carlo(n_plants: int = 4096, seed: int = 0,
+                        dtype=DEFAULT_DTYPE, device=None):
+    """Config 4: parameter-randomized Monte-Carlo batch."""
+    from ics_wt_physicsengine_torch.models.monte_carlo import (
+        make_monte_carlo_batch)
+
+    return make_monte_carlo_batch(R.ReactorConfiguration(n_zones=20),
+                                  n_plants, seed=seed, dtype=dtype,
+                                  device=device)

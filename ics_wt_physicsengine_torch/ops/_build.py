@@ -2,12 +2,13 @@
 Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them through
 ``ctypes``.
 
-The shared library is built at first use from the package's own sources
-into ``build/torch_kernels/<hash>/`` beside the package, keyed on a hash of
-the sources and the compiler flags, so an edited source is rebuilt and an
-unchanged one is reused. ``nvcc`` is taken from ``PATH``, else from
-``$CUDA_HOME/bin``, else from ``/usr/local/cuda/bin``. Nothing here runs at
-import time.
+Each ``.cu`` source becomes one shared library, built at first use from the
+package's own sources into ``build/torch_kernels/<hash>/`` beside the
+package. The hash covers every source and the compiler flags, so an edited
+source is rebuilt and an unchanged one is reused. All libraries are built
+together, one ``nvcc`` process each, started at the same time. ``nvcc`` is
+taken from ``PATH``, else from ``$CUDA_HOME/bin``, else from
+``/usr/local/cuda/bin``. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,23 +19,27 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("fused_rollout.cu", "fused_rollout.cuh")
+# library name -> its .cu source; the headers are shared
+LIBRARIES = {"fused_rollout": "fused_rollout.cu",
+             "fused_plant": "fused_plant.cu"}
+HEADERS = ("fused_rollout.cuh", "philox.cuh", "sensors.cuh")
 # -fmad=false: no contraction of a multiply and an add into one FMA, so the
 # kernels round every operation as the plain PyTorch versions (one kernel
 # per operation) do. The reactor's stratification switch (Ri > 0.25) turns
 # a one-ulp density difference into a 2x change of an interface's exchange
-# rate, so with FMA a float32 comparison would measure that switch instead
-# of the kernel.
+# rate, and the sensors compare against thresholds, so with FMA a float32
+# comparison would measure those switches instead of the kernel.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
-_lib = None
+_libs: dict = {}
 build_info: dict = {}
 
 
@@ -53,57 +58,84 @@ def nvcc_path() -> str:
 
 def _source_hash(flags) -> str:
     h = hashlib.sha256(" ".join(flags).encode())
-    for name in SOURCES:
+    for name in (*LIBRARIES.values(), *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(flags=NVCC_FLAGS) -> Path:
-    """Compile the library with ``flags`` if this source hash has not been
-    built yet; return its path. ``build_info`` records the seconds the build
-    took and the compiler's output (``-Xptxas -v``: registers and spills)."""
-    out_dir = BUILD_ROOT / _source_hash(flags)
-    lib_path = out_dir / "libwt_fused_rollout.so"
-    log_path = out_dir / "nvcc.log"
+def _build_one(name: str, out_dir: Path, flags) -> dict:
+    lib_path = out_dir / f"libwt_{name}.so"
+    log_path = out_dir / f"nvcc_{name}.log"
     if lib_path.exists():
-        build_info.update(path=str(lib_path), seconds=0.0, cached=True,
-                          log=log_path.read_text() if log_path.exists()
-                          else "")
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libwt_fused_rollout.{os.getpid()}.so"
-    cmd = [nvcc_path(), *flags, "-o", str(tmp),
-           str(CSRC / "fused_rollout.cu")]
+        return dict(path=str(lib_path), seconds=0.0, cached=True,
+                    log=log_path.read_text() if log_path.exists() else "")
+    tmp = out_dir / f"libwt_{name}.{os.getpid()}.so"
+    cmd = [nvcc_path(), *flags, "-o", str(tmp), str(CSRC / LIBRARIES[name])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed on {LIBRARIES[name]} "
+                           f"({proc.returncode}):\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)
-    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      log=log)
-    return lib_path
+    return dict(path=str(lib_path), seconds=seconds, cached=False, log=log)
 
 
-def load():
-    """The kernel library the wrappers launch, built first if needed."""
-    global _lib
-    if _lib is None:
-        _lib = bind(build())
-    return _lib
+def build(flags=NVCC_FLAGS) -> dict:
+    """Compile every library with ``flags`` (those this source hash has not
+    built yet, in parallel); return ``{name: path}``. ``build_info`` records
+    per library the seconds its build took and the compiler's output
+    (``-Xptxas -v``: registers and spills), and the wall seconds of all."""
+    out_dir = BUILD_ROOT / _source_hash(flags)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        infos = list(pool.map(lambda n: _build_one(n, out_dir, flags),
+                              LIBRARIES))
+    build_info.update(dict(zip(LIBRARIES, infos)),
+                      seconds=time.perf_counter() - t0)
+    return {name: Path(info["path"]) for name, info in zip(LIBRARIES, infos)}
 
 
-def bind(path: Path):
-    """Load the library at ``path`` and declare its C interface."""
+def load(name: str = "fused_rollout"):
+    """The kernel library ``name`` that the wrappers launch, built first
+    (with every other library) if needed."""
+    if name not in _libs:
+        _libs.update({n: bind(n, path) for n, path in build().items()})
+    return _libs[name]
+
+
+def use(libs: dict) -> None:
+    """Make ``libs`` (``{name: bound library}``) the libraries the wrappers
+    launch: for comparing two builds within one process."""
+    _libs.update(libs)
+
+
+def bind(name: str, path: Path):
+    """Load library ``name`` at ``path`` and declare its C interface."""
     lib = ctypes.CDLL(str(path))
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in (lib.wt_rollout_fused, lib.wt_rollout_scheduled):
-        fn.argtypes = [i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                       ptr, ptr, ptr, i32, i32, i32, i32, i32, f64, ptr]
-        fn.restype = i32
-    lib.wt_error_string.argtypes = [i32]
-    lib.wt_error_string.restype = ctypes.c_char_p
+    u64 = ctypes.c_ulonglong
+    if name == "fused_rollout":
+        for fn in (lib.wt_rollout_fused, lib.wt_rollout_scheduled):
+            fn.argtypes = [i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
+                           ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f64,
+                           ptr]
+            fn.restype = i32
+        lib.wt_error_string.argtypes = [i32]
+        lib.wt_error_string.restype = ctypes.c_char_p
+    else:
+        lib.wt_plant_rollout.argtypes = (
+            [i32, ptr, ptr, i32, ptr, i32]      # type, tables, rkc, stages
+            + [ptr] * 5 + [u64]                 # sensor tables, words, seed
+            + [ptr] * 13                        # time, state, outputs
+            + [i32] * 5 + [f64, f64, ptr])      # sizes, h_step, dt, stream
+        lib.wt_plant_rollout.restype = i32
+        lib.wt_philox_words.argtypes = [u64, i32, i32, ptr, ptr]
+        lib.wt_philox_words.restype = i32
+        lib.wt_plant_error_string.argtypes = [i32]
+        lib.wt_plant_error_string.restype = ctypes.c_char_p
     return lib

@@ -44,6 +44,7 @@ import torch
 from ics_wt_physicsengine_torch.core import constants as c
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.ops.integrators import _rkc2_coefficients
+from ics_wt_physicsengine_torch.utils.dispatch import ieee_div as _div
 
 LN10 = math.log(10.0)
 MAX_ZONES = 128
@@ -154,13 +155,6 @@ def _rkc_host_table(stages: int, h_step: float):
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path; the reference for the kernels)
 # ---------------------------------------------------------------------------
-
-
-def _div(x, k: float):
-    """``x / k`` as an IEEE division. On a CUDA tensor PyTorch divides by a
-    Python scalar by multiplying with its reciprocal, which can round one
-    ulp away from the reference's (and the kernels') true division."""
-    return x / torch.full_like(x, k)
 
 
 def _boundary_terms(p, get):

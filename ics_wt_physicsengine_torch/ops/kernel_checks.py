@@ -1,7 +1,7 @@
 """
-Kernels B1 and B2 held against their plain PyTorch versions on the same
-CUDA inputs: the tables, schedules and tolerances that ``chip_smoke.py``
-and ``tests/test_torch_gpu.py`` share.
+Kernels B1, B2 and B3 held against their plain PyTorch versions on the same
+CUDA inputs: the tables, schedules, cases and tolerances that
+``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share.
 
 Tolerances: the kernels are built without FMA contraction and the plain
 versions divide as the kernels do, so both round every operation alike and
@@ -11,18 +11,30 @@ difference carried over a few hundred evaluations and are small enough to
 catch a flipped stratification switch (Ri > 0.25), which moves a state by
 ~1e-3. Against the plain version on the CPU (whose exp may differ from the
 card's in the last bit) the float64 bound is ``CPU_TOL``.
+
+B3 adds the instruments, whose pipeline compares against thresholds (the
+1e-4 fault roll, the [20, 28] V window, range and rate limits): a last-bit
+difference in a normal draw could flip one and change a reading outright.
+Uniforms are exact (24 bits times 2^-24), and the normals' ``log``,
+``sqrt``, ``cos`` and ``sin`` and the chlorine sensor's ``10 ** x`` are the
+same device functions on both sides, so B3 is held to the same ``TOL`` on
+every float (state, the 94 float carry columns, rebuilt rings, readings),
+with NaN in the same places and the 28 integer carry columns equal.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
+from ics_wt_physicsengine_torch.models import plant as P
 from ics_wt_physicsengine_torch.models.monte_carlo import (
     make_monte_carlo_batch)
+from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
@@ -136,3 +148,259 @@ def b1_vs_cpu(n_plants, device, *, substeps, n_steps) -> float:
                           **kw)
     return max(float((a.cpu() - b).abs().max())
                for a, b in zip(got[:3], ref[:3]))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B3: the instrumented plant
+# ---------------------------------------------------------------------------
+
+# Each case names what it adds to the matrix: single plant and 64-plant
+# batches at 5 and 20 zones, RK4 and RKC-fast, constant forcing and
+# ``bench_schedule``, injected words and the Philox stream, every step
+# recorded and every tenth, per-plant line delays, non-default zone taps,
+# and both working types. 60 steps cross the 30-step sample-line delay.
+B3_CASES = {
+    "single-z20-rk4-const-bits": dict(
+        n_zones=20, n_plants=1, integrator="rk4", scheduled=False,
+        rng="bits", record_every=1),
+    "single-z20-fast-sched-philox-rec10": dict(
+        n_zones=20, n_plants=1, integrator="fast", scheduled=True,
+        rng="philox", record_every=10),
+    "batch64-z5-rk4-const-philox-rec10": dict(
+        n_zones=5, n_plants=64, integrator="rk4", scheduled=False,
+        rng="philox", record_every=10),
+    "batch64-z20-fast-const-bits": dict(
+        n_zones=20, n_plants=64, integrator="fast", scheduled=False,
+        rng="bits", record_every=1),
+    "batch64-z20-rk4-sched-bits-rec10-delays": dict(
+        n_zones=20, n_plants=64, integrator="rk4", scheduled=True,
+        rng="bits", record_every=10, delays=True),
+    "batch64-z5-fast-sched-philox-taps": dict(
+        n_zones=5, n_plants=64, integrator="fast", scheduled=True,
+        rng="philox", record_every=1, taps=True),
+    "batch64-z20-rk4-const-philox-delays-taps-f64": dict(
+        n_zones=20, n_plants=64, integrator="rk4", scheduled=False,
+        rng="philox", record_every=10, delays=True, taps=True,
+        dtype=torch.float64),
+    "single-z20-fast-sched-bits-f64": dict(
+        n_zones=20, n_plants=1, integrator="fast", scheduled=True,
+        rng="bits", record_every=1, dtype=torch.float64),
+}
+B3_STEPS = 60
+
+
+def plant_plan(n_zones: int, integrator: str):
+    """``(substeps, stages)`` of the default plant: RK4's
+    ``default_substeps`` or the RKC2 plan of mode ``integrator``."""
+    cfg = R.ReactorConfiguration(n_zones=n_zones)
+    if integrator == "rk4":
+        return R.default_substeps(cfg, DT), None
+    return R.default_rkc_plan(cfg, DT, mode=integrator)
+
+
+def _with_base(sensor_params, **changes):
+    return dataclasses.replace(sensor_params, base=dataclasses.replace(
+        sensor_params.base, **changes))
+
+
+def plant_case(n_zones: int, n_plants: int, dtype, device, *,
+               delays: bool = False, taps: bool = False, seed: int = 1):
+    """``(params, plant)``: ``make_plant`` when ``n_plants == 1``, else a
+    ``make_plant_batch`` from ``seed``. ``delays`` gives the pH-inlet,
+    pH-outlet and temperature-inlet lines per-plant delays between 0 and
+    30 s (whole steps at dt = 1 s); ``taps`` moves four sensors to interior
+    zones."""
+    cfg = R.ReactorConfiguration(n_zones=n_zones)
+    if n_plants == 1:
+        params, plant = P.make_plant(cfg, dtype=dtype, device=device)
+    else:
+        params, plant = P.make_plant_batch(cfg, n_plants, seed=seed,
+                                           dtype=dtype, device=device)
+    if delays:
+        i = torch.arange(n_plants, device=device)
+        lines = {"ph_inlet": (i % 7) * 5.0, "ph_outlet": 30.0 - (i % 4) * 7.0,
+                 "temp_inlet": (i % 3) * 11.0}
+        if n_plants == 1:
+            lines = {name: d[0] for name, d in lines.items()}
+        params = dataclasses.replace(params, **{
+            name: _with_base(getattr(params, name), line_delay_s=d.to(dtype))
+            for name, d in lines.items()})
+    if taps:
+        zones = {"ph_inlet": 2, "ph_outlet": -2, "chlorine_inlet": 3,
+                 "temp_outlet": -4}
+        params = dataclasses.replace(params, **{
+            name: dataclasses.replace(getattr(params, name), zone_index=z)
+            for name, z in zones.items()})
+    return params, plant
+
+
+def plant_words(n_steps: int, n_plants: int, device, seed: int = 0):
+    """Injected words ``[n_steps, N_WORDS, n_plants]`` from ``seed``, with
+    the fault paths forced rather than left to chance: in step 5 the
+    pH-outlet sensor of plant 0 rolls an open circuit (fault-roll word 0),
+    in step 7 its chlorine-outlet sensor a short circuit, and in step 9 the
+    flow meter's supply voltage walks to 24 + 7.4 V (both Box-Muller words
+    0) and latches a power fault."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-2 ** 31, 2 ** 31,
+                         size=(n_steps, FP.N_WORDS, n_plants), dtype=np.int32)
+    off = FP._WORD_OFFSET
+
+    def uniform_word(attr, kind, k):
+        n_normals, _ = FP._RAND[kind]
+        return off[attr] + 2 * ((n_normals + 1) // 2) + k
+
+    if n_steps > 9:
+        words[5, uniform_word("ph_outlet", "ph", 1), 0] = 0
+        words[5, uniform_word("ph_outlet", "ph", 2), 0] = 0        # open
+        words[7, uniform_word("chlorine_outlet", "cl", 1), 0] = 0
+        words[7, uniform_word("chlorine_outlet", "cl", 2), 0] = -1  # short
+        words[9, off["flow_main"], 0] = 0
+        words[9, off["flow_main"] + 1, 0] = 0
+    return torch.from_numpy(words).to(device)
+
+
+def tree_leaves(obj, path=""):
+    """``(path, tensor)`` for every tensor in a nest of dataclasses,
+    dictionaries and lists."""
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from tree_leaves(getattr(obj, f.name), f"{path}.{f.name}")
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from tree_leaves(v, f"{path}.{k}")
+    elif isinstance(obj, (list, tuple)):
+        for k, v in enumerate(obj):
+            yield from tree_leaves(v, f"{path}[{k}]")
+
+
+def plant_diff(got, ref) -> dict:
+    """Two ``(plant, readings)`` results leaf by leaf: the largest absolute
+    difference over the floats (where neither is NaN; equal infinities count
+    0), the leaf it is in, whether NaN sits in the same places, and whether
+    every integer and boolean leaf is equal."""
+    worst, where, nan_equal, ints_equal = 0.0, "", True, True
+    for (path, a), (path_b, b) in zip(tree_leaves(got), tree_leaves(ref)):
+        if path != path_b or a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(f"results differ in structure at {path}: "
+                             f"{a.shape} {a.dtype} vs {path_b} {b.shape} "
+                             f"{b.dtype}")
+        if a.numel() == 0:
+            continue
+        if not a.is_floating_point():
+            ints_equal = ints_equal and torch.equal(a, b)
+            continue
+        nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+        nan_equal = nan_equal and torch.equal(nan_a, nan_b)
+        d = torch.where((a == b) | nan_a | nan_b, torch.zeros_like(a),
+                        (a - b).abs())
+        err = float(torch.nan_to_num(d, nan=float("inf")).max())
+        if err > worst:
+            worst, where = err, path
+    return dict(max_abs_err=worst, worst_leaf=where, nan_equal=nan_equal,
+                ints_equal=ints_equal)
+
+
+def _fused(run, params, plant, boundary, *, substeps, stages, n_steps,
+           record_every=1, bits=None, seed=0):
+    return FP._rollout_with(run, params, plant, boundary, dt=DT,
+                            substeps=substeps, n_steps=n_steps,
+                            stages=stages, record_every=record_every,
+                            bits=bits, seed=seed, consume_line=True)
+
+
+def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
+    """Kernel B3 and its plain version on one ``B3_CASES`` entry, both on
+    the card; returns the kernel's ``(plant, readings)`` and ``plant_diff``
+    of the two."""
+    dtype = case.get("dtype", torch.float32)
+    params, plant = plant_case(case["n_zones"], case["n_plants"], dtype,
+                               device, delays=case.get("delays", False),
+                               taps=case.get("taps", False))
+    substeps, stages = plant_plan(case["n_zones"], case["integrator"])
+    boundary = bench_schedule(n_steps) if case["scheduled"] else BC
+    bits = plant_words(n_steps, case["n_plants"], device) \
+        if case["rng"] == "bits" else None
+    kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
+              record_every=case["record_every"], bits=bits, seed=11)
+    got = _fused(FP.plant_kernel, params, plant, boundary, **kw)
+    torch.cuda.synchronize()
+    ref = _fused(FP.plant_plain, params, plant, boundary, **kw)
+    return got, plant_diff(got, ref)
+
+
+def b3_constant_schedule_equals_constant(n_zones, n_plants, device, *,
+                                         integrator, n_steps=40) -> bool:
+    """Whether B3 on a schedule that repeats ``BC`` every step gives the
+    constant-forcing result bit for bit: state, carries, rings and
+    readings."""
+    params, plant = plant_case(n_zones, n_plants, torch.float32, device)
+    substeps, stages = plant_plan(n_zones, integrator)
+    const = R.BoundaryConditions(**{
+        f.name: np.full(n_steps, getattr(BC, f.name))
+        for f in dataclasses.fields(BC)})
+    kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
+              record_every=4, seed=5)
+    a = _fused(FP.plant_kernel, params, plant, BC, **kw)
+    b = _fused(FP.plant_kernel, params, plant, const, **kw)
+    torch.cuda.synchronize()
+    d = plant_diff(a, b)
+    return d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"]
+
+
+def b3_chained(device, n_plants: int = 8, n_zones: int = 5,
+               segment: int = 20) -> dict:
+    """Plain, kernel, plain against plain three times, ``segment`` steps
+    each on per-plant line delays of up to 30 steps: the kernel segment
+    consumes rings the plain version wrote (lead-in) and hands on rings it
+    rebuilt (write-back). Returns ``plant_diff`` of the two chains' ends."""
+    params, plant0 = plant_case(n_zones, n_plants, torch.float32, device,
+                                delays=True)
+    substeps, stages = plant_plan(n_zones, "rk4")
+    words = plant_words(3 * segment, n_plants, device, seed=3)
+    ends = []
+    for runs in ((FP.plant_plain, FP.plant_kernel, FP.plant_plain),
+                 (FP.plant_plain,) * 3):
+        plant, rows = plant0, []
+        for k, run in enumerate(runs):
+            plant, readings = _fused(
+                run, params, plant, BC, substeps=substeps, stages=stages,
+                n_steps=segment,
+                bits=words[k * segment:(k + 1) * segment].contiguous())
+            rows.append(readings)
+        ends.append((plant, rows))
+    torch.cuda.synchronize()
+    return plant_diff(*ends)
+
+
+def philox_statistics(device, n_steps: int = 64, n_plants: int = 256,
+                      seed: int = 2024) -> dict:
+    """The kernel's own generator on the card: whether its words equal the
+    plain version's integer-arithmetic stream, and the mean and variance of
+    the ~1.2e6 uniforms and as many normals they give, with the rate of
+    ``u < 1e-4`` (the open/short fault roll)."""
+    words = FP.philox_words_kernel(seed, n_steps, n_plants, device)
+    torch.cuda.synchronize()
+    same = torch.equal(words, FP.philox_words(seed, 0, n_steps, n_plants,
+                                              device))
+    even, odd = words.reshape(-1)[0::2], words.reshape(-1)[1::2]
+    n, u = FP.rand_from_words([even, odd, even, odd], 2, 2,
+                              dtype=torch.float64)
+    u, n = u.reshape(-1), n.reshape(-1)
+    return dict(words_equal_plain=same, count=int(u.numel()),
+                uniform_mean=float(u.mean()), uniform_var=float(u.var()),
+                uniform_min=float(u.min()), uniform_max=float(u.max()),
+                rate_below_1e_4=float((u < 1e-4).double().mean()),
+                normal_mean=float(n.mean()), normal_var=float(n.var()),
+                normal_abs_max=float(n.abs().max()))
+
+
+# Bounds of ``philox_statistics`` at its default 1.2e6 draws: five standard
+# errors of each estimate (uniform mean 2.6e-4, variance 6.7e-5 from its
+# fourth moment; rate 9e-6; normal mean 9e-4, variance 1.3e-3).
+PHILOX_BOUNDS = dict(uniform_mean=(0.5, 1.4e-3),
+                     uniform_var=(1.0 / 12.0, 4e-4),
+                     rate_below_1e_4=(1e-4, 5e-5),
+                     normal_mean=(0.0, 5e-3), normal_var=(1.0, 7e-3))

@@ -1,5 +1,5 @@
 """
-Broadcasting helper shared by the physics formulas.
+Broadcasting and division helpers shared by the physics and sensor formulas.
 
 Host-side construction (``make_params``, ``make_initial_state``) runs the
 formulas in float64 NumPy, exactly as the JAX package does, so parameters
@@ -8,6 +8,8 @@ on torch tensors.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -33,3 +35,24 @@ def align_trailing(c, like):
     while c.ndim and c.ndim < like_ndim:
         c = c[..., None]
     return c
+
+
+def ieee_div(x: torch.Tensor, k: float) -> torch.Tensor:
+    """``x / k`` as an IEEE division. On a CUDA tensor PyTorch divides by a
+    Python scalar by multiplying with its reciprocal, which can round one
+    ulp away from the JAX package's (and the CUDA kernels') true division."""
+    return x / torch.full_like(x, k)
+
+
+def map_tensors(fn, obj):
+    """``obj`` with ``fn`` applied to every tensor leaf: dataclasses are
+    rebuilt field by field, dictionaries value by value; ``None`` and Python
+    values (zone counts, sensor types) pass through."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return type(obj)(**{f.name: map_tensors(fn, getattr(obj, f.name))
+                            for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: map_tensors(fn, v) for k, v in obj.items()}
+    return obj

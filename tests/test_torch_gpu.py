@@ -1,4 +1,4 @@
-"""Kernels B1 and B2 on the CUDA card against their plain PyTorch versions
+"""Kernels B1, B2 and B3 on the CUDA card against their plain PyTorch versions
 on the same inputs (the kernels have no CPU mode, so these tests skip
 without a card). This file imports no JAX: the machine with the card has
 none. Run it there with
@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
+from ics_wt_physicsengine_torch.models import plant as P
+from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
 from ics_wt_physicsengine_torch.ops import kernel_checks as K
 
@@ -68,3 +70,79 @@ def test_b1_float64_matches_the_cpu_path(cuda):
     """The kernel on the card against the plain version on the CPU, which
     the CPU suite holds to the JAX package."""
     assert K.b1_vs_cpu(16, cuda, substeps=2, n_steps=50) <= K.CPU_TOL
+
+
+@pytest.mark.parametrize("case", sorted(K.B3_CASES))
+def test_b3_matches_plain(cuda, case):
+    """State, every carry column, rebuilt rings and readings; NaN in the
+    same places; integer carries equal."""
+    spec = K.B3_CASES[case]
+    (plant, readings), diff = K.b3_vs_plain(spec, cuda)
+    assert diff["nan_equal"] and diff["ints_equal"], diff
+    assert diff["max_abs_err"] <= K.TOL[spec.get("dtype", torch.float32)], \
+        diff
+    assert bool(torch.isfinite(plant.reactor.pH).all())
+    n_rec = K.B3_STEPS // spec["record_every"]
+    assert readings["pH_outlet"].shape[0] == n_rec
+    if spec["rng"] == "bits":   # the injected faults went dark
+        assert bool(torch.isnan(readings["pH_outlet"][-1].reshape(-1)[0]))
+        assert bool(torch.isnan(readings["flow_main"][-1].reshape(-1)[0]))
+
+
+@pytest.mark.parametrize("n_zones,n_plants,integrator",
+                         [(20, 1, "rk4"), (5, 37, "fast")])
+def test_b3_constant_schedule_equals_constant_forcing(cuda, n_zones,
+                                                      n_plants, integrator):
+    assert K.b3_constant_schedule_equals_constant(
+        n_zones, n_plants, cuda, integrator=integrator)
+
+
+def test_b3_chained_with_the_plain_version(cuda):
+    """plain -> kernel -> plain equals plain three times: lead-in from
+    incoming rings and ring write-back."""
+    diff = K.b3_chained(cuda)
+    assert diff["nan_equal"] and diff["ints_equal"], diff
+    assert diff["max_abs_err"] <= K.TOL[torch.float32], diff
+
+
+def test_philox_stream_of_the_kernel(cuda):
+    stats = K.philox_statistics(cuda)
+    assert stats["words_equal_plain"]
+    for name, (centre, half_width) in K.PHILOX_BOUNDS.items():
+        assert abs(stats[name] - centre) <= half_width, (name, stats)
+    assert 0.0 <= stats["uniform_min"] and stats["uniform_max"] < 1.0
+
+
+def test_plant_wrappers_launch_b3_on_cuda_tensors(cuda):
+    cfg = R.ReactorConfiguration(n_zones=20)
+    params, plant = P.make_plant(cfg, device=cuda)
+    FP.reset_launch_counts()
+    F.reset_launch_counts()
+    new, readings = FP.plant_rollout_fused(params, plant, K.BC, dt=1.0,
+                                           substeps=3, n_steps=20,
+                                           record_every=5, seed=1)
+    new, traj = P.plant_rollout_auto(params, new, K.bench_schedule(10), 1.0,
+                                     3, 10, seed=2)
+    torch.cuda.synchronize()
+    assert FP.LAUNCHES == {"plant_rollout_fused": 2}
+    assert F.LAUNCHES == {"rollout_fused": 0, "rollout_scheduled_fused": 0}
+    assert readings["pH_outlet"].shape == (4,)
+    assert readings["pH_outlet"].is_cuda
+    assert traj["temp_inlet"].shape == (10,)
+    assert float(new.reactor.time) == 30.0
+    assert bool(torch.isfinite(new.reactor.pH).all())
+
+
+def test_b3_rejects_what_it_cannot_run(cuda):
+    cfg = R.ReactorConfiguration(n_zones=5)
+    params, plant = P.make_plant(cfg, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        FP.plant_rollout_fused(params, plant, K.BC, dt=1.0, substeps=3,
+                               n_steps=10, record_every=3)
+    with pytest.raises(ValueError, match="bits"):
+        FP.plant_rollout_fused(params, plant, K.BC, dt=1.0, substeps=3,
+                               n_steps=10, rng="bits")
+    cpu_tables = FP.build_tables(*P.make_plant(cfg, device="cpu"), K.BC,
+                                 dt=1.0, n_steps=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        FP.plant_kernel(cpu_tables, dt=1.0, substeps=3, n_steps=4)

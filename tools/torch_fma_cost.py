@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""What building kernels B1 and B2 without FMA contraction costs, on one
-CUDA card.
+"""What building kernels B1, B2 and B3 without FMA contraction costs, on
+one CUDA card.
 
     python3 tools/torch_fma_cost.py
 
-The port's kernels (ics_wt_physicsengine_torch/csrc/fused_rollout.cu) are
-built with -fmad=false so that they round every operation as their plain
-PyTorch versions do. This script builds them a second time with nvcc's
-default contraction (-fmad=true), the two builds in parallel, and times
-both libraries on the main path's float32 shapes: 4096 and 32768
-Monte-Carlo plants of the 20-zone reactor (examples/monte_carlo_uq.py's
-dosing policy) with RK4 3 substeps and RKC-fast 1 x 4, and one 20-zone
-plant through bench.py's dosing schedule. Each cell runs the two builds in
+The port's kernels (ics_wt_physicsengine_torch/csrc/*.cu) are built with
+-fmad=false so that they round every operation as their plain PyTorch
+versions do. This script builds them a second time with nvcc's default
+contraction (-fmad=true), the two builds in parallel, and times both on
+the main path's float32 shapes: 4096 and 32768 Monte-Carlo plants of the
+20-zone reactor (examples/monte_carlo_uq.py's dosing policy) with RK4 3
+substeps and RKC-fast 1 x 4, one 20-zone plant through bench.py's dosing
+schedule, and the instrumented plant (kernel B3, Philox): one 20-zone plant
+for 16384 steps with RK4 and RKC-fast, and 4096 plants for 2000 steps
+recorded every 100. Each cell runs the two builds in
 the order shipped, FMA, FMA, shipped after a warm-up of each, and reports
 their mean CUDA-event times, their ratio, and how far the FMA build's final
 state and outlet chlorine p05/median/p95 lie from the shipped build's.
@@ -54,6 +56,7 @@ def main() -> int:
         return 2
     from ics_wt_physicsengine_torch.core import reactor as R
     from ics_wt_physicsengine_torch.ops import _build
+    from ics_wt_physicsengine_torch.ops import fused_plant as FP
     from ics_wt_physicsengine_torch.ops import fused_rollout as F
     from ics_wt_physicsengine_torch.ops import kernel_checks as K
 
@@ -69,7 +72,9 @@ def main() -> int:
                              for f in _build.NVCC_FLAGS)}
     with ThreadPoolExecutor(len(variants)) as pool:
         paths = dict(zip(variants, pool.map(_build.build, variants.values())))
-    libs = {name: _build.bind(path) for name, path in paths.items()}
+    libs = {variant: {name: _build.bind(name, path)
+                      for name, path in built.items()}
+            for variant, built in paths.items()}
 
     dev, f32 = torch.device("cuda"), torch.float32
     policy = R.BoundaryConditions(
@@ -94,12 +99,32 @@ def main() -> int:
                                              substeps=fast[0],
                                              stages=fast[1])))
 
+    # kernel B3 on chip_smoke.py's instrumented cells
+    def plant_cell(n_plants, n_steps, record_every, m, s):
+        params, plant = K.plant_case(20, n_plants, f32, dev)
+        tables = FP.build_tables(params, plant, K.BC, dt=1.0,
+                                 n_steps=n_steps)
+
+        def run():
+            out = FP.plant_kernel(tables, dt=1.0, substeps=m, stages=s,
+                                  n_steps=n_steps,
+                                  record_every=record_every, seed=7)
+            return out.ph, out.cl, out.t
+        return run
+
+    rk4 = K.plant_plan(20, "rk4")
+    for tag, (m, s) in (("rk4", rk4), ("fast", fast)):
+        cells.append((f"PLANT-1 x16384 {tag} ({m}x{s or 4})",
+                      plant_cell(1, 16384, 16384, m, s)))
+    cells.append((f"PLANT-4096 x2000 rk4 ({rk4[0]}x4)",
+                  plant_cell(4096, 2000, 100, *rk4)))
+
     rows = []
     for label, run in cells:
         times = {name: [] for name in libs}
         finals = {}
         for name in ("shipped", "fma", "fma", "shipped"):
-            _build._lib = libs[name]        # the library the wrappers launch
+            _build.use(libs[name])      # the libraries the wrappers launch
             if name not in finals:
                 finals[name] = run()                         # warm-up
             ms, _ = timed(run, REPS)
