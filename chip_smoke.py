@@ -23,6 +23,12 @@ Phases:
     plain -> kernel -> plain run; a constant schedule equal to constant
     forcing; the kernel's Philox stream against the plain one, with its
     statistics; and the main-path shapes 4096 x 20 and 1 x 20, timed;
+ 3c. kernel B4 (the Newton pH solve) against its plain version on the card
+    over kernel_checks.B4_CASES (1, 7, 129, 1025 and 65,536 waters, shapes
+    (4, 6) and (4096, 20), float64 and float32, a batch with degenerate
+    waters whose NaN must sit in the same places); float64 B4 against the
+    step-by-step loop core.chemistry.solve_pH and against the host's
+    scalar solver; and the main-path shape 4096 x 256, timed;
  4. the bare-physics main path at full size: 4096 parameter-randomized
     20-zone plants, 7200 one-second steps, RK4 (3 substeps) and RKC-fast
     (1 x 4 stages), make_monte_carlo_batch -> rollout_fused (kernel B1) ->
@@ -36,14 +42,26 @@ Phases:
     scheduled segment recorded every 60 steps, chained twice; 4096 plants
     x 20 zones x 2000 steps recorded every 100; each beside the physics
     alone (B1/B2) at the same size; then the port's entry() on the card;
+ 5c. the equilibrium-pH main path through solve_pH_auto and
+    pH_after_alkalinity_shift (kernel B4): PH-EQ-65536, 65,536 waters in
+    float32 and float64; PH-TITR-4096x256, a 256-point titration curve
+    (+-1 meq/L) for each of the 4096 Monte-Carlo plants; each beside the
+    step-by-step loop on the same CUDA tensors (what the kernel replaces
+    on the card; no single PyTorch call computes the solve);
+ 5d. the object API on the card: run_all_validations and
+    run_all_sensor_validations, the sensors demo (5-zone IntegratedCSTR.step
+    plus seven sensor reads per tick for 180 ticks, then calibration,
+    cleaning, reagent replacement), and the same loop on the 20-zone plant
+    for 600 ticks. This path is per-tick plain PyTorch and launches no
+    hand-written kernel;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5 and 5b. Direct kernel calls (phases 3 and 3b, the
-kernel-only times) and phase 6 lie outside those windows. Exits non-zero,
+the sum over phases 4, 5, 5b and 5c. Direct kernel calls (phases 3, 3b and
+3c, the kernel-only times) and phase 6 lie outside those windows. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -52,6 +70,7 @@ Details go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -78,6 +97,7 @@ KERNELS = {
                                 f"{TPU_OPS}/fused_rollout.py:312"),
     "plant_rollout_fused": (f"{CSRC}/fused_plant.cu",
                             f"{TPU_OPS}/fused_plant.py:293"),
+    "solve_pH_kernel": (f"{CSRC}/ph_solver.cu", f"{TPU_OPS}/ph_solver.py:55"),
 }
 
 failures: list = []
@@ -132,15 +152,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from ics_wt_physicsengine_torch import entry as port_entry
+    from ics_wt_physicsengine_torch.core import chemistry as chem
     from ics_wt_physicsengine_torch.core import reactor as R
+    from ics_wt_physicsengine_torch.core import run_all_validations
     from ics_wt_physicsengine_torch.models import make_monte_carlo_batch
     from ics_wt_physicsengine_torch.models import plant as P
     from ics_wt_physicsengine_torch.ops import _build
     from ics_wt_physicsengine_torch.ops import fused_plant as FP
     from ics_wt_physicsengine_torch.ops import fused_rollout as F
     from ics_wt_physicsengine_torch.ops import kernel_checks as K
+    from ics_wt_physicsengine_torch.ops import ph_solver as PS
     from ics_wt_physicsengine_torch.parallel import (
         ensemble_statistics, exceedance_probability)
+    from ics_wt_physicsengine_torch.sensors import (
+        run_all_sensor_validations)
+    from ics_wt_physicsengine_torch.sensors.__main__ import run_demo
+    from ics_wt_physicsengine_torch.sensors.types import (SensorFault,
+                                                          SensorStatus)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,6 +395,66 @@ def main() -> int:
 
     compare_plant()
 
+    def ph_bound(n_elements, dtype):
+        """``(bound_ms, bound_by)`` of one B4 launch on ``n_elements``."""
+        ops_ms = PS.ph_ops(n_elements) / FP32_PEAK * 1e3
+        bytes_ms = PS.ph_bytes(
+            n_elements, torch.empty((), dtype=dtype).element_size()) \
+            / HBM_RATE * 1e3
+        return max(ops_ms, bytes_ms), \
+            "operations" if ops_ms >= bytes_ms else "bytes"
+
+    # ---- 3c. kernel B4 against its plain version --------------------------
+    @phase("B4 vs plain")
+    def compare_ph():
+        rows = []
+        for name, case in K.B4_CASES.items():
+            tol = K.TOL[case["dtype"]]
+            got, d = K.b4_vs_plain(case, dev)
+            n_nan = int(torch.isnan(got).sum())
+            rows.append(dict(case=name, n_nan=n_nan, **d))
+            check(d["max_abs_err"] <= tol and d["nan_equal"]
+                  and got.shape == case["shape"]
+                  and n_nan == (2 if case.get("degenerate") else 0),
+                  f"B4 {name}: max|kernel-plain| {d['max_abs_err']:.3e} <= "
+                  f"{tol:.0e}; bit-equal: {d['bit_equal']}; NaN positions "
+                  f"equal: {d['nan_equal']} ({n_nan} NaN)")
+        err = K.b4_vs_loop(dev)
+        rows.append(dict(case="float64 vs step-by-step loop, 1025",
+                         max_abs_err=err))
+        check(err <= K.PH_LOOP_TOL, "B4 float64 vs core.chemistry.solve_pH "
+              f"(10 ** -pH form) on the card, 1025 waters: {err:.3e} <= "
+              f"{K.PH_LOOP_TOL:.0e}")
+        err = K.b4_vs_host(dev)
+        rows.append(dict(case="float64 vs host solver, 16", max_abs_err=err))
+        check(err <= K.PH_LOOP_TOL, "B4 float64 vs solve_pH_host, 16 "
+              f"waters: {err:.3e} <= {K.PH_LOOP_TOL:.0e}")
+        report["compare_b4"] = rows
+
+        # main-path shape, float32, timed: the kernels line
+        k, shifts = K.titration_waters(4096, 256, f32, dev)
+        shifted = dataclasses.replace(k, alk_eq=k.alk_eq + shifts)
+        args, _ = PS._broadcast(shifted, PS.solve_pH_plain(k, 7.0))
+        PS.ph_kernel(*args)                                 # warm-up
+        ms, got = timed(lambda: PS.ph_kernel(*args), reps=10)
+        plain_ms, ref = timed(lambda: PS.ph_plain(*args))
+        d = K.ph_diff(got, ref)
+        bound, bound_by = ph_bound(args[0].numel(), f32)
+        check(d["max_abs_err"] <= K.TOL[f32] and d["nan_equal"],
+              f"B4 float32 4096x256 (titration inputs): max|kernel-plain| "
+              f"{d['max_abs_err']:.3e}, bit-equal: {d['bit_equal']}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
+              f"({bound_by})")
+        report["b4_main_shape"] = dict(ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound, bound_by=bound_by,
+                                       **d)
+        kernels["solve_pH_kernel"].update(
+            max_abs_err=d["max_abs_err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by)
+        return True
+
+    compare_ph()
+
     main_launches = dict.fromkeys(KERNELS, 0)
 
     def on_main_path(name, run, reps, launches_per_call=1):
@@ -376,9 +464,10 @@ def main() -> int:
         times where ``run`` chains calls) and no other kernel."""
         F.reset_launch_counts()
         FP.reset_launch_counts()
+        PS.reset_launch_counts()
         run()                                                # warm-up
         ms, out = timed(run, reps=reps)
-        counts = {**F.LAUNCHES, **FP.LAUNCHES}
+        counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
         for kernel, n in counts.items():
             main_launches[kernel] += n
         calls = (1 + reps) * launches_per_call
@@ -663,6 +752,153 @@ def main() -> int:
         return True
 
     plant_main()
+
+    # ---- 5c. the equilibrium-pH main path ----------------------------------
+    @phase("main path: equilibrium pH")
+    def ph_main():
+        name = "solve_pH_kernel"
+        out = {}
+
+        def alone(constants, guess, dtype):
+            """Kernel B4 alone and the step-by-step loop on the same CUDA
+            tensors, outside the launch-count windows: ``(kernel ms, loop
+            ms, bound ms, bound by)``."""
+            args, _ = PS._broadcast(constants, guess)
+            kernel_ms, _ = timed(lambda: PS.ph_kernel(*args), reps=10)
+            loop_ms, _ = timed(lambda: chem.solve_pH(constants, guess))
+            bound, bound_by = ph_bound(args[0].numel(), dtype)
+            return kernel_ms, loop_ms, bound, bound_by
+
+        # PH-EQ-65536: one batch of waters, both working types
+        n = 65536
+        results = {}
+        for dtype in (f32, torch.float64):
+            tag = str(dtype)[6:]
+            k = K.ph_waters((n,), dtype, dev)
+            ph0 = torch.full((n,), 7.0, dtype=dtype, device=dev)
+            ms, ph = on_main_path(name, lambda: PS.solve_pH_auto(k, ph0), 10)
+            kernel_ms, loop_ms, bound, bound_by = alone(k, ph0, dtype)
+            results[dtype] = ph
+            out[f"PH-EQ-65536_{tag}"] = dict(
+                waters=n, iters=PS.DEFAULT_ITERS, wrapper_ms=ms,
+                kernel_ms=kernel_ms, loop_ms=loop_ms, bound_ms=bound,
+                bound_by=bound_by, solves_per_s=n / (ms / 1e3),
+                pH_min=float(ph.min()), pH_max=float(ph.max()))
+            check(bool(torch.isfinite(ph).all()) and ph.shape == (n,)
+                  and bool(((ph > 0.0) & (ph < 14.0)).all()),
+                  f"PH-EQ-65536 {tag}: {n / (ms / 1e3):.4e} solves/s; "
+                  f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, bound "
+                  f"{bound:.5f} ms ({bound_by}; float32 peak); the "
+                  f"step-by-step loop it replaces {loop_ms:.1f} ms; pH "
+                  f"{float(ph.min()):.3f}..{float(ph.max()):.3f}")
+        gap = (results[f32].double() - results[torch.float64]).abs()
+        share = float((gap < 1e-5).double().mean())
+        out["PH-EQ-65536_float32"].update(
+            share_within_1e_5_of_float64=share, max_gap=float(gap.max()))
+        check(share > 0.9, f"PH-EQ-65536: {share:.4f} of float32 solves "
+              f"within 1e-5 of float64 (largest gap {float(gap.max()):.2e}: "
+              "elements that cannot meet 1e-6 in float32)")
+
+        # PH-TITR-4096x256: a titration curve per Monte-Carlo plant
+        for dtype in (f32, torch.float64):
+            tag = str(dtype)[6:]
+            k, shifts = K.titration_waters(4096, 256, dtype, dev)
+            base = PS.solve_pH_auto(k, 7.0)
+
+            def run():
+                return chem.pH_after_alkalinity_shift(k, shifts, base)
+            ms, curve = on_main_path(name, run, 5)
+            shifted = dataclasses.replace(k, alk_eq=k.alk_eq + shifts)
+            kernel_ms, loop_ms, bound, bound_by = alone(shifted, base, dtype)
+            verdict = K.titration_check(k, shifts, curve)
+            n = curve.numel()
+            out[f"PH-TITR-4096x256_{tag}"] = dict(
+                solves=n, iters=PS.DEFAULT_ITERS, wrapper_ms=ms,
+                kernel_ms=kernel_ms, loop_ms=loop_ms, bound_ms=bound,
+                bound_by=bound_by, solves_per_s=n / (ms / 1e3), **verdict)
+            check(curve.shape == (4096, 256) and verdict["finite"]
+                  and verdict["in_range"] and verdict["rising"]
+                  and verdict["closed_share"] > 0.9
+                  and verdict["pair_share"] > 0.5,
+                  f"PH-TITR-4096x256 {tag}: {n / (ms / 1e3):.4e} solves/s; "
+                  f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, bound "
+                  f"{bound:.5f} ms ({bound_by}; float32 peak); the "
+                  f"step-by-step loop it replaces {loop_ms:.1f} ms; charge "
+                  f"balance closed for {verdict['closed_share']:.4f} of the "
+                  f"solves; curves rise with the shift on all "
+                  f"{verdict['pair_share']:.4f} of neighbour pairs closed "
+                  f"below pH {K.TITRATION_PH_TOP} (least step "
+                  f"{verdict['min_step']:.2e})")
+        report["ph"] = out
+        return True
+
+    ph_main()
+
+    # ---- 5d. the object API on the card -----------------------------------
+    @phase("object API on the card")
+    def object_api():
+        F.reset_launch_counts()
+        FP.reset_launch_counts()
+        PS.reset_launch_counts()
+        out = {}
+        run_all_validations(dev)
+        run_all_sensor_validations(dev)
+        check(True, "run_all_validations and run_all_sensor_validations "
+              "ran on the card")
+
+        dark = (SensorStatus.FAILED, SensorStatus.POWER_FAULT,
+                SensorStatus.WARMING_UP)
+
+        def sound(history) -> bool:
+            """Every field of every reading finite, or NaN only where the
+            status says so: a dark status or a fault code, or, for the
+            value, after an open or short circuit of the same sensor (the
+            model's NaN latch: the first-order lag keeps the NaN while the
+            status moves on)."""
+            latched = False
+            for r in history:
+                always = all(np.isfinite(x) for x in (
+                    r.timestamp, r.noise, r.drift, r.uncertainty))
+                value_ok = np.isfinite(r.value) or r.status in dark \
+                    or r.fault is not SensorFault.NONE or latched
+                raw_ok = np.isfinite(r.raw_value) or r.status in dark[1:]
+                if not (always and value_ok and raw_ok):
+                    return False
+                latched = latched or r.status is SensorStatus.FAILED
+            return True
+
+        for tag, n_zones, n_ticks, verbose in (("demo-5", 5, 180, True),
+                                               ("plant-20", 20, 600, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reactor, suite = run_demo(dev, n_zones=n_zones, n_ticks=n_ticks,
+                                      verbose=verbose)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            readings = [r for s in suite.values() for r in s.reading_history]
+            finite = float(np.mean([np.isfinite(r.value) for r in readings]))
+            out[tag] = dict(n_zones=n_zones, ticks=n_ticks, seconds=seconds,
+                            ticks_per_s=n_ticks / seconds,
+                            readings=len(readings), finite_share=finite)
+            check(len(suite) == 7
+                  and all(sound(x.reading_history) for x in suite.values())
+                  and len(readings) == 7 * n_ticks + 1
+                  and reactor.state.pH.is_cuda
+                  and float(reactor.state.time) == float(n_ticks)
+                  and bool(torch.isfinite(reactor.state.pH).all()),
+                  f"object API {tag}: {n_zones}-zone IntegratedCSTR.step + 7 "
+                  f"reads per tick, {n_ticks} ticks in {seconds:.2f} s: "
+                  f"{n_ticks / seconds:.2f} ticks/s (host clock; per-tick "
+                  f"plain PyTorch, no hand-written kernel); {len(readings)} "
+                  f"readings sound, {finite:.4f} finite")
+        reactor.print_diagnostics()
+        counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
+        check(not any(counts.values()),
+              f"object API: no hand-written kernel launched ({counts})")
+        report["object_api"] = out
+        return True
+
+    object_api()
 
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")

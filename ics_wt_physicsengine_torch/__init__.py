@@ -5,10 +5,15 @@ A second implementation of ``ics_wt_physicsengine_tpu`` in PyTorch, with the
 JAX package's Pallas TPU kernels rewritten by hand in CUDA C++ for sm_90a.
 It imports neither JAX nor the JAX package.
 
-- ``core/``     the multi-zone reactor physics on ``[..., n_zones]`` tensors.
-- ``ops/``      integrators and the fused-rollout CUDA kernels (``csrc/``),
-                each with its plain PyTorch version.
-- ``models/``   Monte-Carlo parameter-randomized plant batches.
+- ``core/``     the multi-zone reactor physics on ``[..., n_zones]`` tensors
+                and the reference simulator's object API over it
+                (``python -m ics_wt_physicsengine_torch.core``).
+- ``sensors/``  the instrument suite as pure transforms, and the sensor
+                classes (``python -m ics_wt_physicsengine_torch.sensors``).
+- ``ops/``      integrators and the CUDA kernels (``csrc/``: fused rollout,
+                fused plant, Newton pH solve), each with its plain PyTorch
+                version.
+- ``models/``   the instrumented plant and Monte-Carlo plant batches.
 - ``parallel/`` ensemble statistics.
 - ``convert``   carries NumPy values (e.g. from the JAX package) across.
 

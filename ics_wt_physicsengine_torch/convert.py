@@ -1,6 +1,6 @@
 """
-Carry parameters, states, boundary conditions, sensors and whole plants
-across from NumPy.
+Carry parameters, states, boundary conditions, chemistry constants, sensors,
+electrical stages and whole plants across from NumPy.
 
 Each function takes a mapping from field name to NumPy value (``chem``, a
 sensor's ``base`` and a plant's members nested as mappings) -- for example
@@ -23,6 +23,7 @@ from ics_wt_physicsengine_torch.device import (resolve_device,
                                                tensor_from_numpy)
 from ics_wt_physicsengine_torch.sensors import base as SB
 from ics_wt_physicsengine_torch.sensors import chlorine as SC
+from ics_wt_physicsengine_torch.sensors import electrical as SE
 from ics_wt_physicsengine_torch.sensors import flow as SF
 from ics_wt_physicsengine_torch.sensors import ph as SP
 from ics_wt_physicsengine_torch.sensors import temperature as ST
@@ -47,6 +48,12 @@ def params_from_numpy(values, dtype=None, device=None) -> R.ReactorParams:
         elif f.name not in R.EXTENSION_AXES:
             kw[f.name] = tensor_from_numpy(values[f.name], dtype, dev)
     return R.ReactorParams(**kw)
+
+
+def chemistry_constants_from_numpy(values, dtype=None, device=None):
+    """``core.chemistry.ChemistryConstants`` from a mapping of its six
+    fields (scalars or arrays of any shape)."""
+    return constants_from_numpy(values, dtype=dtype, device=device)
 
 
 _STATE_FIELDS = tuple(f.name for f in fields(R.ReactorState))
@@ -136,6 +143,21 @@ def sensor_carry_from_numpy(cls, values, dtype=None, device=None):
     hold no generator state."""
     base_cls = None if cls is SB.SensorCarry else SB.SensorCarry
     return _sensor_object(cls, base_cls, values, dtype,
+                          resolve_device(device))
+
+
+def electrical_params_from_numpy(values, dtype=None, device=None):
+    """``sensors.electrical.ElectricalParams`` from a mapping of its
+    fields."""
+    return _sensor_object(SE.ElectricalParams, None, values, dtype,
+                          resolve_device(device))
+
+
+def electrical_carry_from_numpy(values, dtype=None, device=None):
+    """``sensors.electrical.ElectricalCarry`` from a mapping of its fields
+    (``cable_initialized`` stays boolean). A ``key`` entry is ignored, as
+    in ``sensor_carry_from_numpy``."""
+    return _sensor_object(SE.ElectricalCarry, None, values, dtype,
                           resolve_device(device))
 
 

@@ -1,6 +1,6 @@
 """
 Aqueous carbonate/chlorine chemistry (port of
-``ics_wt_physicsengine_tpu/core/chemistry.py`` :63-241).
+``ics_wt_physicsengine_tpu/core/chemistry.py``).
 
 All functions are elementwise in pH and explicitly parameterized by the
 equilibrium constants, so one code path serves single plants and
@@ -9,13 +9,18 @@ pads them against ``[B, Z]`` zone tensors).
 
 The Newton pH solve is a fixed-iteration, masked-update loop: every element
 runs the same iterations, and an element stops moving once
-``|delta pH| < tol``.
+``|delta pH| < tol``. ``solve_pH`` is that loop step by step in PyTorch;
+``ops/ph_solver.py`` holds the same solve as one CUDA kernel, which
+``pH_after_alkalinity_shift`` reaches for CUDA tensors. ``solve_pH_host``
+and the ``AqueousChemistry`` class compute on the host in float64 NumPy
+(the formulas below take NumPy values as well as tensors).
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+import warnings
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -103,6 +108,12 @@ def H_from_pH(pH):
     return 10.0 ** (-pH)
 
 
+def pH_from_H(H):
+    if isinstance(H, torch.Tensor):
+        return -torch.log10(H)
+    return -np.log10(H)
+
+
 def alpha_carbonate(pH, Ka1, Ka2):
     """Carbonate speciation fractions (alpha0, alpha1, alpha2)."""
     Ka1 = align_trailing(Ka1, pH)
@@ -165,6 +176,45 @@ def solve_pH(k: ChemistryConstants, initial_guess=7.0,
     return pH
 
 
+def solve_pH_host(k: ChemistryConstants, initial_guess=7.0,
+                  tolerance: float = PH_TOLERANCE,
+                  max_iter: int = MAX_ITERATIONS) -> float:
+    """Host-side (NumPy scalar) Newton-Raphson with an early exit and a
+    RuntimeError on non-convergence or a vanishing derivative; ``k`` holds
+    NumPy values. Used by ``AqueousChemistry``; ``solve_pH`` above is the
+    device path."""
+    pH = float(initial_guess)
+    f = float("nan")
+    for i in range(max_iter):
+        f = float(charge_balance_error(np.float64(pH), k))
+        df = float(charge_balance_derivative(np.float64(pH), k))
+        if abs(df) < 1e-15:
+            raise RuntimeError(
+                f"Derivative too small at pH={pH:.3f}, cannot continue")
+        cap = MAX_NEWTON_STEP * NEWTON_STEP_DECAY ** i
+        delta = min(max(-f / df, -cap), cap)
+        pH_new = min(max(pH + delta, 0.0), 14.0)
+        if abs(delta) < tolerance:
+            return pH_new
+        pH = pH_new
+    raise RuntimeError(
+        f"pH calculation did not converge after {max_iter} iterations. "
+        f"Final pH={pH:.3f}, error={f:.2e}")
+
+
+def pH_after_alkalinity_shift(k: ChemistryConstants, delta_alk_eq,
+                              current_pH):
+    """Re-solve pH after shifting alkalinity by ``delta_alk_eq`` [eq/L],
+    the primitive behind strong acid/base addition. CUDA tensors go through
+    the fused Newton kernel (``ops.ph_solver.solve_pH_auto``), CPU tensors
+    through ``solve_pH``."""
+    # imported here: ops.ph_solver imports this module
+    from ics_wt_physicsengine_torch.ops.ph_solver import solve_pH_auto
+
+    return solve_pH_auto(replace(k, alk_eq=k.alk_eq + delta_alk_eq),
+                         current_pH)
+
+
 def buffering_capacity(pH, k: ChemistryConstants):
     """beta(pH) = water + carbonate contributions."""
     H = H_from_pH(pH)
@@ -185,3 +235,142 @@ def pH_dependent_chlorine_decay_factor(pH, Ka_HOCl):
     """Weighted decay multiplier: HOCl at 1.0, OCl- at 0.02."""
     a_hocl = hocl_fraction(pH, Ka_HOCl)
     return a_hocl * 1.0 + (1.0 - a_hocl) * c.K_OCL_RELATIVE
+
+
+# ---------------------------------------------------------------------------
+# Object API (host NumPy float64, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BufferSystem:
+    """Buffer parameters."""
+
+    alkalinity: float              # [mg/L as CaCO3]
+    total_carbonate: float         # [mmol/L]
+    temperature: float = 20.0      # [C]
+
+    def validate(self) -> None:
+        if self.alkalinity < 0:
+            raise ValueError(
+                f"Alkalinity cannot be negative: {self.alkalinity}")
+        if self.total_carbonate < 0:
+            raise ValueError(
+                f"Total carbonate cannot be negative: {self.total_carbonate}"
+            )
+        if self.temperature < 0 or self.temperature > 40:
+            warnings.warn(
+                f"Temperature {self.temperature}C outside typical range "
+                "[0, 40]"
+            )
+
+
+class AqueousChemistry:
+    """The reference simulator's chemistry class over the functions above.
+    It computes on the host in NumPy float64 and touches no device;
+    ``constants`` holds NumPy values."""
+
+    CACO3_MW = c.CACO3_MW
+    PH_TOLERANCE = PH_TOLERANCE
+    MAX_ITERATIONS = MAX_ITERATIONS
+
+    def __init__(self, buffer_system: BufferSystem):
+        buffer_system.validate()
+        self.buffer = buffer_system
+        self.thermo = thermo.TemperatureDependentKinetics()
+        self._update_temperature_constants()
+
+    def _update_temperature_constants(self) -> None:
+        self.constants = ChemistryConstants(**chemistry_constants_numpy(
+            self.buffer.alkalinity, self.buffer.total_carbonate,
+            self.buffer.temperature))
+        self.Kw = float(self.constants.Kw)
+        self.pKw = -math.log10(self.Kw)
+        self.pKa1 = float(thermo.carbonate_pKa1(self.buffer.temperature))
+        self.Ka1 = float(self.constants.Ka1)
+        self.pKa2 = float(thermo.carbonate_pKa2(self.buffer.temperature))
+        self.Ka2 = float(self.constants.Ka2)
+        self.pKa_HOCl = float(thermo.pKa_HOCl(self.buffer.temperature))
+        self.Ka_HOCl = float(self.constants.Ka_HOCl)
+
+    def H_from_pH(self, pH):
+        return H_from_pH(np.asarray(pH))
+
+    def pH_from_H(self, H):
+        return pH_from_H(np.asarray(H))
+
+    def alpha_carbonate(self, pH):
+        return alpha_carbonate(np.asarray(pH),
+                               self.constants.Ka1, self.constants.Ka2)
+
+    def charge_balance_error(self, pH):
+        return charge_balance_error(np.asarray(pH), self.constants)
+
+    def charge_balance_derivative(self, pH):
+        return charge_balance_derivative(np.asarray(pH), self.constants)
+
+    def calculate_pH(self, initial_guess: float = 7.0,
+                     tolerance: float = PH_TOLERANCE,
+                     max_iter: int = MAX_ITERATIONS):
+        return solve_pH_host(self.constants, initial_guess,
+                             tolerance=tolerance, max_iter=max_iter)
+
+    def _shifted(self, delta_alk_eq: float) -> ChemistryConstants:
+        return replace(self.constants,
+                       alk_eq=self.constants.alk_eq + delta_alk_eq)
+
+    def add_acid(self, volume_L: float, acid_mol: float, current_pH: float):
+        """New pH after strong-acid addition."""
+        return solve_pH_host(self._shifted(-(acid_mol / volume_L)),
+                             initial_guess=current_pH)
+
+    def add_base(self, volume_L: float, base_mol: float, current_pH: float):
+        """New pH after strong-base addition."""
+        return solve_pH_host(self._shifted(base_mol / volume_L),
+                             initial_guess=current_pH)
+
+    def buffering_capacity(self, pH):
+        return buffering_capacity(np.asarray(pH), self.constants)
+
+    def chlorine_speciation(self, total_chlorine_mg_L, pH):
+        a_hocl = hocl_fraction(np.asarray(pH), self.constants.Ka_HOCl)
+        a_ocl = 1.0 - a_hocl
+        return {
+            "HOCl": a_hocl * total_chlorine_mg_L,
+            "OCl": a_ocl * total_chlorine_mg_L,
+            "HOCl_fraction": a_hocl,
+            "OCl_fraction": a_ocl,
+            "effective_disinfection": a_hocl,
+        }
+
+    def pH_dependent_chlorine_decay_factor(self, pH):
+        return pH_dependent_chlorine_decay_factor(
+            np.asarray(pH), self.constants.Ka_HOCl)
+
+
+def validate_chemistry() -> None:
+    """Oracle suite of the chemistry class (host-side)."""
+    buffer = BufferSystem(alkalinity=100, total_carbonate=2.0, temperature=20)
+    chemistry = AqueousChemistry(buffer)
+
+    pH = chemistry.calculate_pH()
+    assert 6.0 < pH < 9.0, f"pH {pH} outside expected range"
+
+    a0, a1, a2 = chemistry.alpha_carbonate(pH)
+    assert abs(float(a0 + a1 + a2) - 1.0) < 1e-6, "Alphas don't sum to 1"
+
+    pH_after_acid = chemistry.add_acid(1000, 0.001, pH)
+    assert pH_after_acid < pH, "Acid should decrease pH"
+
+    pH_after_base = chemistry.add_base(1000, 0.001, pH)
+    assert pH_after_base > pH, "Base should increase pH"
+
+    beta_635 = float(chemistry.buffering_capacity(6.35))
+    beta_80 = float(chemistry.buffering_capacity(8.0))
+    assert beta_635 > beta_80, "Buffering should be stronger near pKa"
+
+    spec = chemistry.chlorine_speciation(2.0, 7.0)
+    assert abs(float(spec["HOCl"] + spec["OCl"]) - 2.0) < 1e-6, \
+        "Chlorine doesn't balance"
+
+    print("All chemistry validations passed")

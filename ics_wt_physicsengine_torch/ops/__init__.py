@@ -1,2 +1,2 @@
-"""Integrators and the fused-rollout CUDA kernels with their plain PyTorch
-versions."""
+"""Integrators and the CUDA kernels (fused rollout, fused plant, Newton pH
+solve) with their plain PyTorch versions."""

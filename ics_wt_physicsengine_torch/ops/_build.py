@@ -27,7 +27,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 # library name -> its .cu source; the headers are shared
 LIBRARIES = {"fused_rollout": "fused_rollout.cu",
-             "fused_plant": "fused_plant.cu"}
+             "fused_plant": "fused_plant.cu",
+             "ph_solver": "ph_solver.cu"}
 HEADERS = ("fused_rollout.cuh", "philox.cuh", "sensors.cuh")
 # -fmad=false: no contraction of a multiply and an add into one FMA, so the
 # kernels round every operation as the plain PyTorch versions (one kernel
@@ -127,7 +128,7 @@ def bind(name: str, path: Path):
             fn.restype = i32
         lib.wt_error_string.argtypes = [i32]
         lib.wt_error_string.restype = ctypes.c_char_p
-    else:
+    elif name == "fused_plant":
         lib.wt_plant_rollout.argtypes = (
             [i32, ptr, ptr, i32, ptr, i32]      # type, tables, rkc, stages
             + [ptr] * 5 + [u64]                 # sensor tables, words, seed
@@ -138,4 +139,13 @@ def bind(name: str, path: Path):
         lib.wt_philox_words.restype = i32
         lib.wt_plant_error_string.argtypes = [i32]
         lib.wt_plant_error_string.restype = ctypes.c_char_p
+    elif name == "ph_solver":
+        lib.wt_solve_ph.argtypes = (
+            [i32] + [ptr] * 8                   # type, 7 inputs, output
+            + [ctypes.c_longlong, i32, f64, ptr])   # n, iters, tol, stream
+        lib.wt_solve_ph.restype = i32
+        lib.wt_ph_error_string.argtypes = [i32]
+        lib.wt_ph_error_string.restype = ctypes.c_char_p
+    else:
+        raise ValueError(f"unknown kernel library {name!r}")
     return lib

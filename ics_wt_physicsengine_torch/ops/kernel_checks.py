@@ -1,6 +1,6 @@
 """
-Kernels B1, B2 and B3 held against their plain PyTorch versions on the same
-CUDA inputs: the tables, schedules, cases and tolerances that
+Kernels B1, B2, B3 and B4 held against their plain PyTorch versions on the
+same CUDA inputs: the tables, schedules, cases and tolerances that
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` share.
 
 Tolerances: the kernels are built without FMA contraction and the plain
@@ -20,6 +20,14 @@ Uniforms are exact (24 bits times 2^-24), and the normals' ``log``,
 same device functions on both sides, so B3 is held to the same ``TOL`` on
 every float (state, the 94 float carry columns, rebuilt rings, readings),
 with NaN in the same places and the 28 integer carry columns equal.
+
+B4 (the Newton pH solve) tests ``|delta| < tolerance`` every iteration, and
+in float32 the default tolerance lies below the resolution of pH near the
+root, so one differently rounded operation would move a non-converged
+element by up to the decayed step cap (~1e-2). Kernel and plain version do
+the same operations in the same order on the same ``exp``, so they are
+expected to agree bit for bit and are held to ``TOL``, with NaN in the same
+places.
 """
 
 from __future__ import annotations
@@ -30,12 +38,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ics_wt_physicsengine_torch.core import chemistry as chem
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.models import plant as P
 from ics_wt_physicsengine_torch.models.monte_carlo import (
     make_monte_carlo_batch)
 from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
+from ics_wt_physicsengine_torch.ops import ph_solver as PS
 
 TOL = {torch.float64: 1e-12, torch.float32: 1e-4}
 CPU_TOL = 1e-9
@@ -404,3 +414,152 @@ PHILOX_BOUNDS = dict(uniform_mean=(0.5, 1.4e-3),
                      uniform_var=(1.0 / 12.0, 4e-4),
                      rate_below_1e_4=(1e-4, 5e-5),
                      normal_mean=(0.0, 5e-3), normal_var=(1.0, 7e-3))
+
+
+# ---------------------------------------------------------------------------
+# Kernel B4: the Newton pH solve
+# ---------------------------------------------------------------------------
+
+# Element counts around the block size of 256 (1, 7, 129, 1025), the
+# 65,536-water batch, a small and a plants-by-zones 2-D shape, both working
+# types, and a batch with three degenerate waters.
+B4_CASES = {
+    f"{name}-{str(dtype)[6:]}": dict(shape=shape, dtype=dtype)
+    for dtype in (torch.float64, torch.float32)
+    for name, shape in (("n1", (1,)), ("n7", (7,)), ("n129", (129,)),
+                        ("n1025", (1025,)), ("n65536", (65536,)),
+                        ("4x6", (4, 6)), ("4096x20", (4096, 20)))
+}
+B4_CASES.update({
+    f"degenerate-{str(dtype)[6:]}": dict(shape=(300,), dtype=dtype,
+                                         degenerate=True)
+    for dtype in (torch.float64, torch.float32)})
+PH_LOOP_TOL = 2e-6      # kernel's exp form against the loop's 10 ** (-pH)
+
+
+def ph_waters_numpy(n: int, seed: int = 42) -> dict:
+    """``n`` chemically consistent waters from ``seed`` as float64 NumPy
+    constants: total carbonate U(1, 5) mmol/L, alkalinity U(0.5, 1.3) x 50
+    x C_T mg/L as CaCO3, temperature U(5, 35) C."""
+    rng = np.random.default_rng(seed)
+    ct = rng.uniform(1.0, 5.0, n)
+    alk = rng.uniform(0.5, 1.3, n) * 50.0 * ct
+    temp = rng.uniform(5.0, 35.0, n)
+    return chem.chemistry_constants_numpy(alk, ct, temp)
+
+
+def ph_waters(shape, dtype, device, seed: int = 42,
+              degenerate: bool = False) -> chem.ChemistryConstants:
+    """``ph_waters_numpy`` in ``shape`` on ``device``. ``degenerate`` makes
+    element 0 pure water (no carbonate, no alkalinity: the root is the
+    neutral pH of its temperature), gives element 1 a NaN alkalinity and element 2 an infinite
+    Kw (no root: both must come out NaN)."""
+    values = {name: np.array(v).reshape(shape) for name, v in
+              ph_waters_numpy(int(np.prod(shape)), seed).items()}
+    if degenerate:
+        flat = {name: v.reshape(-1) for name, v in values.items()}
+        flat["C_T_mol"][0] = flat["alk_eq"][0] = 0.0
+        flat["alk_eq"][1] = np.nan
+        flat["Kw"][2] = np.inf
+    return chem.constants_from_numpy(values, dtype=dtype, device=device)
+
+
+def ph_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Two solves element by element: the largest absolute difference where
+    neither is NaN, whether NaN sits in the same places, whether the two
+    are bit-equal."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    d = torch.where(nan_a | nan_b, torch.zeros_like(a), (a - b).abs())
+    return dict(max_abs_err=float(d.max()),
+                nan_equal=torch.equal(nan_a, nan_b),
+                bit_equal=torch.equal(torch.where(nan_a, 0.0, a),
+                                      torch.where(nan_b, 0.0, b)))
+
+
+def b4_vs_plain(case: dict, device, guess: float = 7.0):
+    """Kernel B4 and its plain version on one ``B4_CASES`` entry, both on
+    the card; returns the kernel's pH and ``ph_diff`` of the two."""
+    k = ph_waters(case["shape"], case["dtype"], device,
+                  degenerate=case.get("degenerate", False))
+    ph0 = torch.full(case["shape"], guess, dtype=case["dtype"],
+                     device=device)
+    args, shape = PS._broadcast(k, ph0)
+    got = PS.ph_kernel(*args).reshape(shape)
+    torch.cuda.synchronize()
+    return got, ph_diff(got, PS.ph_plain(*args).reshape(shape))
+
+
+def b4_vs_loop(device, n: int = 1025) -> float:
+    """Largest difference of float64 B4 from ``core.chemistry.solve_pH``
+    (the step-by-step loop with ``10 ** (-pH)``) on the same CUDA
+    tensors."""
+    k = ph_waters((n,), torch.float64, device)
+    ph0 = torch.full((n,), 7.0, dtype=torch.float64, device=device)
+    got = PS.solve_pH_kernel(k, ph0)
+    return float((got - chem.solve_pH(k, ph0)).abs().max())
+
+
+def b4_vs_host(device, n: int = 16) -> float:
+    """Largest difference of float64 B4 from the host's scalar Newton loop
+    (``core.chemistry.solve_pH_host``), water by water."""
+    values = ph_waters_numpy(n)
+    k = chem.constants_from_numpy(values, dtype=torch.float64, device=device)
+    got = PS.solve_pH_kernel(
+        k, torch.full((n,), 7.0, dtype=torch.float64, device=device)).cpu()
+    host = [chem.solve_pH_host(chem.ChemistryConstants(
+        **{name: v[i] for name, v in values.items()})) for i in range(n)]
+    return float((got - torch.tensor(host, dtype=torch.float64)).abs().max())
+
+
+# Charge-balance residual [eq/L], evaluated in float64, below which a solve
+# counts as converged: the solver's pH tolerance times the buffer capacity
+# in float64, the resolution of the alkalinity in float32.
+PH_RESIDUAL_TOL = {torch.float64: 1e-9, torch.float32: 1e-7}
+TITRATION_PH_TOP = 9.5
+
+
+def titration_waters(n_plants: int, n_shifts: int, dtype, device,
+                     seed: int = 0, span_eq: float = 1e-3):
+    """``(k, shifts)``: the chemistry of ``make_monte_carlo_batch(seed)``'s
+    ``n_plants`` plants as ``[n_plants, 1]`` constants, and ``n_shifts``
+    alkalinity shifts from ``-span_eq`` to ``+span_eq`` eq/L (+-1 meq/L):
+    a titration curve per plant."""
+    params, _ = make_monte_carlo_batch(R.ReactorConfiguration(n_zones=20),
+                                       n_plants, seed=seed, dtype=dtype,
+                                       device=device)
+    k = chem.ChemistryConstants(**{
+        f.name: getattr(params.chem, f.name)[:, None]
+        for f in dataclasses.fields(params.chem)})
+    return k, torch.linspace(-span_eq, span_eq, n_shifts, dtype=dtype,
+                             device=device)
+
+
+def titration_check(k: chem.ChemistryConstants, shifts, curve) -> dict:
+    """What a run can show of ``curve = pH_after_alkalinity_shift(k,
+    shifts, .)``: the share of solves whose charge balance closes
+    (``PH_RESIDUAL_TOL``, residual in float64), and whether the curves rise
+    with the shift wherever two neighbouring solves both closed below pH
+    ``TITRATION_PH_TOP``.
+
+    The rest is the model's, equal in the JAX package: its charge balance
+    carries ``[H+] - [OH-]`` with that sign, so above pH ~10 the residual
+    is not monotone in pH, a water with more alkalinity than its carbonate
+    can carry has no root, and Newton from the unshifted pH ends away from
+    one."""
+    wide = {f.name: getattr(k, f.name).double()
+            for f in dataclasses.fields(k)}
+    wide["alk_eq"] = wide["alk_eq"] + shifts.double()
+    residual = chem.charge_balance_error(
+        curve.double(), chem.ChemistryConstants(**wide)).abs()
+    closed = (residual < PH_RESIDUAL_TOL[curve.dtype]) \
+        & (curve < TITRATION_PH_TOP)
+    pairs = closed[:, 1:] & closed[:, :-1]
+    steps = (curve[:, 1:] - curve[:, :-1])[pairs]
+    return dict(
+        closed_share=float((residual < PH_RESIDUAL_TOL[curve.dtype])
+                           .double().mean()),
+        pair_share=float(pairs.double().mean()),
+        min_step=float(steps.min()) if steps.numel() else float("nan"),
+        rising=bool((steps > 0).all()) and steps.numel() > 0,
+        finite=bool(torch.isfinite(curve).all()),
+        in_range=bool(((curve >= 0.0) & (curve <= 14.0)).all()))

@@ -1,4 +1,4 @@
-"""Kernels B1, B2 and B3 on the CUDA card against their plain PyTorch versions
+"""Kernels B1, B2, B3 and B4 on the CUDA card against their plain PyTorch versions
 on the same inputs (the kernels have no CPU mode, so these tests skip
 without a card). This file imports no JAX: the machine with the card has
 none. Run it there with
@@ -8,15 +8,19 @@ none. Run it there with
 The tables and tolerances are ``ops/kernel_checks.py``'s, which
 ``chip_smoke.py`` runs at the main path's shapes."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from ics_wt_physicsengine_torch.core import chemistry as chem
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.models import plant as P
 from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
 from ics_wt_physicsengine_torch.ops import kernel_checks as K
+from ics_wt_physicsengine_torch.ops import ph_solver as PS
 
 torch.set_num_threads(1)
 
@@ -146,3 +150,57 @@ def test_b3_rejects_what_it_cannot_run(cuda):
                                  dt=1.0, n_steps=4)
     with pytest.raises(ValueError, match="CUDA"):
         FP.plant_kernel(cpu_tables, dt=1.0, substeps=3, n_steps=4)
+
+
+@pytest.mark.parametrize("case", sorted(K.B4_CASES))
+def test_b4_matches_plain(cuda, case):
+    """The Newton pH kernel against its plain version: within ``K.TOL``,
+    NaN in the same places (the degenerate waters), result in the guess's
+    shape."""
+    spec = K.B4_CASES[case]
+    got, diff = K.b4_vs_plain(spec, cuda)
+    assert diff["nan_equal"], diff
+    assert diff["max_abs_err"] <= K.TOL[spec["dtype"]], diff
+    assert got.shape == spec["shape"] and got.dtype == spec["dtype"]
+    if spec.get("degenerate"):
+        assert torch.isnan(got[1:3]).all() and torch.isfinite(got[0])
+        assert int(torch.isnan(got).sum()) == 2
+    else:
+        assert bool(((got > 0.0) & (got < 14.0)).all())
+
+
+def test_b4_matches_the_loop_and_the_host_solver(cuda):
+    assert K.b4_vs_loop(cuda) <= K.PH_LOOP_TOL
+    assert K.b4_vs_host(cuda) <= K.PH_LOOP_TOL
+
+
+def test_ph_wrappers_launch_b4_on_cuda_tensors(cuda):
+    k = K.ph_waters((64, 1), torch.float32, cuda)
+    shifts = torch.linspace(-1e-3, 1e-3, 9, device=cuda)
+    PS.reset_launch_counts()
+    with pytest.warns(RuntimeWarning, match="float32"):
+        a = PS.solve_pH_kernel(k, torch.full((64, 1), 7.0, device=cuda))
+    b = PS.solve_pH_auto(k, 7.0)
+    curve = chem.pH_after_alkalinity_shift(k, shifts, b)
+    torch.cuda.synchronize()
+    assert PS.LAUNCHES == {"solve_pH_kernel": 3}
+    assert torch.equal(a, b) and a.shape == (64, 1) and a.is_cuda
+    assert curve.shape == (64, 9)
+    assert torch.equal(curve, PS.solve_pH_plain(
+        dataclasses.replace(k, alk_eq=k.alk_eq + shifts), b))
+    cpu = [x.cpu() for x in PS._broadcast(k, b)[0]]
+    with pytest.raises(ValueError, match="CUDA"):
+        PS.ph_kernel(*cpu)
+
+
+def test_titration_curves_on_the_card(cuda):
+    """``pH_after_alkalinity_shift`` through B4 on a small titration: the
+    charge balance closes for most solves and the curves rise with the
+    shift wherever it does (``kernel_checks.titration_check``)."""
+    for dtype in (torch.float32, torch.float64):
+        k, shifts = K.titration_waters(256, 64, dtype, cuda)
+        curve = chem.pH_after_alkalinity_shift(k, shifts,
+                                               PS.solve_pH_auto(k, 7.0))
+        verdict = K.titration_check(k, shifts, curve)
+        assert verdict["finite"] and verdict["in_range"], verdict
+        assert verdict["rising"] and verdict["closed_share"] > 0.9, verdict

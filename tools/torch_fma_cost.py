@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""What building kernels B1, B2 and B3 without FMA contraction costs, on
-one CUDA card.
+"""What building kernels B1, B2, B3 and B4 without FMA contraction costs,
+on one CUDA card.
 
     python3 tools/torch_fma_cost.py
 
@@ -13,16 +13,19 @@ the main path's float32 shapes: 4096 and 32768 Monte-Carlo plants of the
 substeps and RKC-fast 1 x 4, one 20-zone plant through bench.py's dosing
 schedule, and the instrumented plant (kernel B3, Philox): one 20-zone plant
 for 16384 steps with RK4 and RKC-fast, and 4096 plants for 2000 steps
-recorded every 100. Each cell runs the two builds in
+recorded every 100; and the Newton pH solve (kernel B4) on 65,536 waters
+and on the 4096 x 256 titration of chip_smoke.py. Each cell runs the two builds in
 the order shipped, FMA, FMA, shipped after a warm-up of each, and reports
 their mean CUDA-event times, their ratio, and how far the FMA build's final
-state and outlet chlorine p05/median/p95 lie from the shipped build's.
+state and outlet chlorine p05/median/p95 lie from the shipped build's
+(for B4: how far its pH lies, and its 5/50/95% quantiles).
 Prints the card's name and power limit and one line per cell; writes
 chiprun_out/torch_fma_cost.json. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -35,6 +38,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 REPS = 2
+PH_REPS = 50        # the pH solve takes well under a millisecond
 QUANTILES = (0.05, 0.5, 0.95)
 
 
@@ -59,6 +63,7 @@ def main() -> int:
     from ics_wt_physicsengine_torch.ops import fused_plant as FP
     from ics_wt_physicsengine_torch.ops import fused_rollout as F
     from ics_wt_physicsengine_torch.ops import kernel_checks as K
+    from ics_wt_physicsengine_torch.ops import ph_solver as PS
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -119,15 +124,36 @@ def main() -> int:
     cells.append((f"PLANT-4096 x2000 rk4 ({rk4[0]}x4)",
                   plant_cell(4096, 2000, 100, *rk4)))
 
+    # kernel B4 on chip_smoke.py's equilibrium-pH cells; the result is
+    # shaped [n, 1] three times so that the comparison below reads it as it
+    # reads a state
+    def ph_cell(constants, guess):
+        args, _ = PS._broadcast(constants, guess)
+
+        def run():
+            ph = PS.ph_kernel(*args)[:, None]
+            return ph, ph, ph
+        return run
+
+    waters = K.ph_waters((65536,), f32, dev)
+    cells.append(("PH-EQ-65536 x100", ph_cell(
+        waters, torch.full((65536,), 7.0, dtype=f32, device=dev)),
+        PH_REPS))
+    k, shifts = K.titration_waters(4096, 256, f32, dev)
+    cells.append(("PH-TITR-4096x256 x100", ph_cell(
+        dataclasses.replace(k, alk_eq=k.alk_eq + shifts),
+        PS.solve_pH_plain(k, 7.0)), PH_REPS))
+
     rows = []
-    for label, run in cells:
+    for label, run, *reps in cells:
+        reps = reps[0] if reps else REPS
         times = {name: [] for name in libs}
         finals = {}
         for name in ("shipped", "fma", "fma", "shipped"):
             _build.use(libs[name])      # the libraries the wrappers launch
             if name not in finals:
                 finals[name] = run()                         # warm-up
-            ms, _ = timed(run, REPS)
+            ms, _ = timed(run, reps)
             times[name].append(ms)
         ms = {name: sum(v) / len(v) for name, v in times.items()}
         a, b = finals["shipped"], finals["fma"]
@@ -135,14 +161,14 @@ def main() -> int:
         q = torch.tensor(QUANTILES, device=dev)
         qgap = float((torch.quantile(a[1][:, -1], q)
                       - torch.quantile(b[1][:, -1], q)).abs().max())
-        row = dict(cell=label, shipped_ms=ms["shipped"], fma_ms=ms["fma"],
+        row = dict(cell=label, reps=reps, shipped_ms=ms["shipped"], fma_ms=ms["fma"],
                    shipped_over_fma=ms["shipped"] / ms["fma"],
                    runs_ms=times, max_abs_state_diff=diff,
                    outlet_cl_quantile_gap=qgap)
         rows.append(row)
         print(f"{label}: -fmad=false {ms['shipped']:.3f} ms, -fmad=true "
               f"{ms['fma']:.3f} ms, ratio {row['shipped_over_fma']:.4f}; "
-              f"max |state diff| {diff:.3e}, outlet Cl quantile gap "
+              f"max |state diff| {diff:.3e}, p05/median/p95 gap "
               f"{qgap:.3e}", flush=True)
 
     out_dir = os.path.join(ROOT, "chiprun_out")
