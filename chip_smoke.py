@@ -434,7 +434,7 @@ def main() -> int:
         # main-path shape, float32, timed: the kernels line
         k, shifts = K.titration_waters(4096, 256, f32, dev)
         shifted = dataclasses.replace(k, alk_eq=k.alk_eq + shifts)
-        args, _ = PS._broadcast(shifted, PS.solve_pH_plain(k, 7.0))
+        args, _ = PS.broadcast_inputs(shifted, PS.solve_pH_plain(k, 7.0))
         PS.ph_kernel(*args)                                 # warm-up
         ms, got = timed(lambda: PS.ph_kernel(*args), reps=10)
         plain_ms, ref = timed(lambda: PS.ph_plain(*args))
@@ -763,7 +763,7 @@ def main() -> int:
             """Kernel B4 alone and the step-by-step loop on the same CUDA
             tensors, outside the launch-count windows: ``(kernel ms, loop
             ms, bound ms, bound by)``."""
-            args, _ = PS._broadcast(constants, guess)
+            args, _ = PS.broadcast_inputs(constants, guess)
             kernel_ms, _ = timed(lambda: PS.ph_kernel(*args), reps=10)
             loop_ms, _ = timed(lambda: chem.solve_pH(constants, guess))
             bound, bound_by = ph_bound(args[0].numel(), dtype)
@@ -818,8 +818,7 @@ def main() -> int:
                 bound_by=bound_by, solves_per_s=n / (ms / 1e3), **verdict)
             check(curve.shape == (4096, 256) and verdict["finite"]
                   and verdict["in_range"] and verdict["rising"]
-                  and verdict["closed_share"] > 0.9
-                  and verdict["pair_share"] > 0.5,
+                  and verdict["enough"],
                   f"PH-TITR-4096x256 {tag}: {n / (ms / 1e3):.4e} solves/s; "
                   f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, bound "
                   f"{bound:.5f} ms ({bound_by}; float32 peak); the "

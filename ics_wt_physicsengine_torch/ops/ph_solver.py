@@ -31,8 +31,10 @@ no FMA contraction, IEEE division) and agree bit for bit.
 
 Which path runs is decided by the device of the tensors alone: CPU tensors
 take the plain version (``solve_pH_kernel``) or ``core.chemistry.solve_pH``
-(``solve_pH_auto``), CUDA tensors launch the kernel or raise. ``LAUNCHES``
-counts kernel launches.
+(``solve_pH_auto``), CUDA tensors launch the kernel or raise. Constants on
+the card with a guess on the CPU, or the other way round, raise too
+(``inputs_device``): nothing is copied off the card to be solved on the
+host. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -57,7 +59,11 @@ LAUNCHES = {"solve_pH_kernel": 0}
 # multiply, divide, exp, abs, compare and select counts one; a negation is
 # an operand modifier and counts nothing): h 2, oh 1, d 5, a1 2, a2 2, f 7,
 # dh 1, doh 3, dd 2, da1 5, da2 4, df 8, Newton step 1, its clip 2, update
-# and clip 3, done test 2, selection 1, mask update 1.
+# and clip 3, done test 2, selection 1, mask update 1. Counted as written:
+# ``ka1 * ka2`` (three times, loop-invariant), ``d * d`` and ``h * h``
+# (twice each) are counted each time, 5 operations a compiler may share;
+# against that, the 7 divisions and the ``exp`` count one each and cost
+# many instructions.
 PH_OPS = 52
 N_ARRAYS = 7        # Kw, Ka1, Ka2, C_T, alk, pH0 in; pH out
 
@@ -90,19 +96,35 @@ def _cap_table(iters: int, dtype, device) -> torch.Tensor:
         dtype).to(device)
 
 
-def _broadcast(constants: ChemistryConstants, initial_guess):
-    """The six solver inputs broadcast to one shape, in the guess's dtype
-    (the constants' for a Python guess), as flat contiguous tensors."""
-    kw = torch.as_tensor(constants.Kw)
-    if isinstance(initial_guess, torch.Tensor):
-        ph0 = initial_guess
-    else:
-        ph0 = torch.as_tensor(initial_guess, dtype=kw.dtype,
-                              device=kw.device)
-    leaves = [torch.as_tensor(x, device=ph0.device).to(ph0.dtype)
-              for x in (constants.Kw, constants.Ka1, constants.Ka2,
-                        constants.C_T_mol, constants.alk_eq)]
-    args = torch.broadcast_tensors(*leaves, ph0)
+def inputs_device(constants: ChemistryConstants, initial_guess) -> torch.device:
+    """The one device the solver's inputs lie on. A Python number or a
+    0-dim CPU tensor counts as a scalar and follows the others (PyTorch's
+    own rule); tensor inputs on different devices raise ``ValueError``, so
+    that no input is ever copied off the card to solve on the CPU."""
+    tensors = [x for x in (constants.Kw, constants.Ka1, constants.Ka2,
+                           constants.C_T_mol, constants.alk_eq,
+                           initial_guess) if isinstance(x, torch.Tensor)]
+    devices = {x.device for x in tensors
+               if x.ndim > 0 or x.device.type != "cpu"}
+    if len(devices) > 1:
+        raise ValueError(
+            "solve_pH: the constants and the guess lie on different "
+            f"devices ({', '.join(sorted(map(str, devices)))})")
+    return devices.pop() if devices else torch.device("cpu")
+
+
+def broadcast_inputs(constants: ChemistryConstants, initial_guess):
+    """``(args, shape)``: the six solver inputs broadcast to ``shape`` as
+    flat contiguous tensors on ``inputs_device``, in the guess's dtype (the
+    constants' for a Python guess). ``args`` is what ``ph_kernel`` and
+    ``ph_plain`` take."""
+    device = inputs_device(constants, initial_guess)
+    dtype = initial_guess.dtype if isinstance(initial_guess, torch.Tensor) \
+        else torch.as_tensor(constants.Kw).dtype
+    args = torch.broadcast_tensors(*(
+        torch.as_tensor(x, device=device).to(dtype)
+        for x in (constants.Kw, constants.Ka1, constants.Ka2,
+                  constants.C_T_mol, constants.alk_eq, initial_guess)))
     shape = args[0].shape
     return [a.reshape(-1).contiguous() for a in args], shape
 
@@ -151,7 +173,7 @@ def solve_pH_plain(constants: ChemistryConstants, initial_guess,
                    tolerance: float = PH_TOLERANCE) -> torch.Tensor:
     """``solve_pH_kernel``'s contract through the plain version, on
     whatever device the tensors lie."""
-    args, shape = _broadcast(constants, initial_guess)
+    args, shape = broadcast_inputs(constants, initial_guess)
     return ph_plain(*args, iters=iters, tolerance=tolerance).reshape(shape)
 
 
@@ -211,7 +233,7 @@ def solve_pH_kernel(constants: ChemistryConstants, initial_guess,
     (any rank); the result has that shape and the guess's dtype. A float32
     guess with a tolerance below 1e-5 warns: see the module docstring.
     """
-    args, shape = _broadcast(constants, initial_guess)
+    args, shape = broadcast_inputs(constants, initial_guess)
     if args[-1].dtype == torch.float32 and tolerance < 1e-5:
         warnings.warn(
             f"solve_pH_kernel: tolerance {tolerance:g} is below float32 "
@@ -233,13 +255,11 @@ def solve_pH_auto(constants: ChemistryConstants, initial_guess,
     Unlike the JAX package's ``solve_pH_auto``, which always takes the
     compiler-fused loop, this one routes by device: PyTorch fuses nothing,
     so on the card the loop is thousands of small launches. The float32
-    note of the module docstring holds here too; in-reactor dynamics never
-    call this solver (the buffering chain rule uses beta directly).
+    note of the module docstring holds here too, and the card's branch
+    warns as ``solve_pH_kernel`` does; in-reactor dynamics never call this
+    solver (the buffering chain rule uses beta directly).
     """
-    where = initial_guess if isinstance(initial_guess, torch.Tensor) \
-        else torch.as_tensor(constants.Kw)
-    if not where.is_cuda:
+    if inputs_device(constants, initial_guess).type != "cuda":
         return chem.solve_pH(constants, initial_guess, tolerance=tolerance,
                              max_iter=iters)
-    args, shape = _broadcast(constants, initial_guess)
-    return ph_kernel(*args, iters=iters, tolerance=tolerance).reshape(shape)
+    return solve_pH_kernel(constants, initial_guess, iters, tolerance)

@@ -35,6 +35,16 @@ torch.set_num_threads(1)
 F64 = torch.float64
 KERNEL_ATOL = 1e-10
 LOOP_ATOL = 2e-6
+# A solve whose charge balance does not close (a water with more alkalinity
+# than its carbonate can carry has no root; a large shift may leave Newton,
+# started from the unshifted pH, short of one) ends where the last capped
+# steps leave it. That path amplifies the last-bit differences of
+# ``10 ** x`` between the two packages, so two such ends may lie a few last
+# caps (``2 * 0.95 ** 99`` = 1.25e-2) apart. Seen at +-1 meq/L on the
+# Monte-Carlo waters: 121 of 2048 solves unclosed, the same 121 in both
+# packages, residuals >= 4.5e-7 eq/L against <= 4.5e-15 for the closed
+# ones; 114 of them within 1e-6 of each other, the largest gap 2.5e-2.
+UNCLOSED_ATOL = 5e-2
 
 
 def _waters(shape, dtype=np.float64):
@@ -210,13 +220,57 @@ def test_ph_after_alkalinity_shift_matches_jax(n_plants, n_shifts):
     got = tchem.pH_after_alkalinity_shift(
         tk, torch.from_numpy(shifts), torch.from_numpy(current))
     assert got.shape == (n_plants, n_shifts)
-    # Same loop on both sides, so 1e-10 wherever both stop in the same
-    # iteration. An element whose step lands within rounding of the 1e-6
-    # tolerance stops one iteration apart in the two packages and differs
-    # by that last step (seen: 2.3e-9), which the tolerance itself bounds.
+    shifted = dataclasses.replace(tk, alk_eq=tk.alk_eq
+                                  + torch.from_numpy(shifts))
+    # at +-0.2 meq/L the one unclosed solve (7 x 5, plant 4) differs by 2.3e-9
+    _same_solves(got, ref, shifted, unclosed_atol=1e-8)
+
+
+def _same_solves(got, ref, shifted, unclosed_atol=UNCLOSED_ATOL):
+    """The port's solves ``got`` against the JAX package's ``ref`` for the
+    waters ``shifted``: the same elements fail to close the charge balance
+    on both sides, every closed one agrees within ``KERNEL_ATOL`` and the
+    unclosed ones within ``unclosed_atol``. Returns the unclosed mask and
+    the gaps."""
+    def unclosed(curve):
+        residual = tchem.charge_balance_error(torch.from_numpy(curve),
+                                              shifted)
+        return (residual.abs() >= K.PH_RESIDUAL_TOL[F64]).numpy()
+
+    ref = np.array(ref)
+    mask = unclosed(ref)
+    assert np.array_equal(unclosed(got.numpy()), mask)
     gap = np.abs(got.numpy() - ref)
-    assert gap.max() <= LOOP_ATOL
-    assert float((gap <= KERNEL_ATOL).mean()) >= 0.95
+    assert gap[~mask].max(initial=0.0) <= KERNEL_ATOL
+    assert gap[mask].max(initial=0.0) <= unclosed_atol
+    return mask, gap
+
+
+def test_titration_of_the_monte_carlo_waters_matches_jax():
+    """The waters and shifts of PH-TITR (``titration_waters``, +-1 meq/L)
+    at 64 plants x 32 shifts, element by element against the JAX package,
+    the solves that do not close included: the same elements fail to close
+    the charge balance in both packages, every closed solve agrees at 1e-10
+    and the unclosed ones within ``UNCLOSED_ATOL``."""
+    k, shifts = K.titration_waters(64, 32, F64, "cpu")
+    jk = jchem.ChemistryConstants(**{
+        f.name: jnp.asarray(getattr(k, f.name).numpy())
+        for f in dataclasses.fields(k)})
+    base_j = jchem.solve_pH(jk, jnp.full((64, 1), 7.0, jnp.float64))
+    base_t = PS.solve_pH_auto(k, 7.0)
+    np.testing.assert_allclose(base_t.numpy(), np.asarray(base_j), rtol=0,
+                               atol=KERNEL_ATOL)
+    ref = np.asarray(jchem.pH_after_alkalinity_shift(
+        jk, jnp.asarray(shifts.numpy()),
+        jnp.broadcast_to(base_j, (64, 32))))
+    got = tchem.pH_after_alkalinity_shift(k, shifts, base_t)
+    assert got.shape == (64, 32)
+
+    mask, gap = _same_solves(
+        got, ref, dataclasses.replace(k, alk_eq=k.alk_eq + shifts))
+    # the share that the check on the card allows for is the model's own
+    assert 0.05 < mask.mean() < 0.07, mask.mean()
+    assert float((gap[mask] <= 1e-6).mean()) >= 0.9
 
 
 def test_titration_check_on_a_small_titration():
@@ -228,14 +282,35 @@ def test_titration_check_on_a_small_titration():
                                             PS.solve_pH_auto(k, 7.0))
     verdict = K.titration_check(k, shifts, curve)
     assert verdict["finite"] and verdict["in_range"] and verdict["rising"]
-    assert verdict["closed_share"] > 0.9 and verdict["pair_share"] > 0.5
+    assert verdict["enough"], verdict
     wrong = K.titration_check(k, shifts, curve.flip(1))
     assert not wrong["rising"] or wrong["closed_share"] < 0.5
 
 
+def test_inputs_on_different_devices_raise():
+    """Constants on one device and a guess on another never solve on
+    either: no input is copied across (the ``meta`` device stands in for
+    the card here). A 0-dim CPU tensor is a scalar and follows the rest."""
+    _, tk, _ = _waters((7,))
+    elsewhere = torch.full((7,), 7.0, dtype=F64, device="meta")
+    for solve in (PS.solve_pH_kernel, PS.solve_pH_auto, PS.solve_pH_plain):
+        with pytest.raises(ValueError, match="different devices"):
+            solve(tk, elsewhere)
+    with pytest.raises(ValueError, match="different devices"):
+        PS.solve_pH_auto(dataclasses.replace(tk, Kw=tk.Kw.to("meta")), 7.0)
+    assert PS.inputs_device(tk, torch.tensor(7.0)) == torch.device("cpu")
+    moved = dataclasses.replace(tk, **{
+        f.name: getattr(tk, f.name).to("meta")
+        for f in dataclasses.fields(tk)})
+    assert PS.inputs_device(moved, torch.tensor(7.0)).type == "meta"
+    assert PS.inputs_device(moved, 7.0).type == "meta"
+    assert torch.equal(PS.solve_pH_auto(tk, torch.tensor(7.0, dtype=F64)),
+                       tchem.solve_pH(tk, 7.0))
+
+
 def test_launcher_refuses_cpu_tensors_and_bad_inputs():
     _, tk, _ = _waters((7,))
-    args, _ = PS._broadcast(tk, torch.full((7,), 7.0, dtype=F64))
+    args, _ = PS.broadcast_inputs(tk, torch.full((7,), 7.0, dtype=F64))
     with pytest.raises(ValueError, match="CUDA"):
         PS.ph_kernel(*args)
     assert PS.LAUNCHES["solve_pH_kernel"] == 0

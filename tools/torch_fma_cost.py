@@ -128,7 +128,7 @@ def main() -> int:
     # shaped [n, 1] three times so that the comparison below reads it as it
     # reads a state
     def ph_cell(constants, guess):
-        args, _ = PS._broadcast(constants, guess)
+        args, _ = PS.broadcast_inputs(constants, guess)
 
         def run():
             ph = PS.ph_kernel(*args)[:, None]
