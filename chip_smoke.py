@@ -14,11 +14,13 @@ Phases:
     the bench's dosing schedule; a constant schedule through B2 equal to
     B1; B1 in float64 against the plain version on the CPU (the tables and
     tolerances of ics_wt_physicsengine_torch/ops/kernel_checks.py);
- 3b. kernel B3 (the instrumented plant) against its plain version on the
-    card over kernel_checks.B3_CASES (single plant and 64-plant batches, 5
-    and 20 zones, RK4 and RKC-fast, constant and scheduled forcing,
-    injected words and Philox, recording every step and every tenth,
-    per-plant line delays, interior zone taps, float32 and float64): state,
+ 3b. kernel B3 (the instrumented plant: physics warps and sensor warps,
+    the sensors of a step overlapped with the next step's physics) against
+    its plain version on the card over kernel_checks.B3_CASES (single plant
+    and 64-plant batches, 1, 5, 20 and 128 zones, RK4 and RKC-fast,
+    constant and scheduled forcing, injected words and Philox, recording
+    every step and every tenth, per-plant line delays, interior zone taps,
+    float32 and float64): state,
     every carry column, rebuilt rings, readings, NaN positions; a chained
     plain -> kernel -> plain run; a constant schedule equal to constant
     forcing; the kernel's Philox stream against the plain one, with its
@@ -41,7 +43,8 @@ Phases:
     steps with RK4, RKC-fast and the bench schedule; one 3600-step
     scheduled segment recorded every 60 steps, chained twice; 4096 plants
     x 20 zones x 2000 steps recorded every 100; each beside the physics
-    alone (B1/B2) at the same size; then the port's entry() on the card;
+    alone (B1/B2) at the same size, and the share of B3's time spent
+    beyond it; then the port's entry() on the card;
  5c. the equilibrium-pH main path through solve_pH_auto and
     pH_after_alkalinity_shift (kernel B4): PH-EQ-65536, 65,536 waters in
     float32 and float64; PH-TITR-4096x256, a 256-point titration curve
@@ -380,11 +383,14 @@ def main() -> int:
             d = K.plant_diff(got, ref)
             bound, bound_by = plant_bound(n_plants, n_steps, m, s, 10,
                                           tables)
+            g = FP.plant_geometry(20, n_plants)
             check(held(d, K.TOL[f32]),
                   f"B3 float32 rk4 ({m}x4) {n_plants}x20 x{n_steps} Philox: "
                   f"max|kernel-plain| {d['max_abs_err']:.3e}; kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} "
-                  f"ms ({bound_by})")
+                  f"ms ({bound_by}); {g.grid(n_plants)} blocks of "
+                  f"{g.plants_per_block} plants on {g.physics_threads} "
+                  f"physics + {g.sensor_threads} sensor threads")
             report[f"b3_main_shape_{n_plants}"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                 **d)
@@ -633,7 +639,7 @@ def main() -> int:
                 steps=n, substeps=m, stages=s, wrapper_ms=ms,
                 kernel_ms=b3_ms, physics_ms=physics_ms, bound_ms=bound,
                 bound_by=bound_by, steps_per_s=n / (ms / 1e3),
-                sensor_share=1.0 - physics_ms / b3_ms,
+                beyond_physics_share=1.0 - physics_ms / b3_ms,
                 finite_final_readings=n_finite)
             check(finite_state(final) and final.reactor.pH.shape == (20,)
                   and float(final.reactor.time) == float(n)
@@ -641,7 +647,7 @@ def main() -> int:
                   f"PLANT-1 {tag} ({m}x{s or 4}) 1x20 x{n}: "
                   f"{n / (ms / 1e3):.4e} steps/s; wrapper {ms:.2f} ms, "
                   f"kernel {b3_ms:.2f} ms, physics alone {physics_ms:.2f} ms"
-                  f" (sensor phase {1.0 - physics_ms / b3_ms:.1%}), bound "
+                  f" (beyond it {1.0 - physics_ms / b3_ms:.1%}), bound "
                   f"{bound:.5f} ms ({bound_by}; one block: latency-bound); "
                   f"{n_finite}/7 final readings finite")
 
@@ -691,6 +697,7 @@ def main() -> int:
             segment_steps=seg, record_every=rec, substeps=m_rk4,
             segment_wrapper_ms=ms / 2, kernel_ms=b3_ms,
             physics_ms=physics_ms, bound_ms=bound, bound_by=bound_by,
+            beyond_physics_share=1.0 - physics_ms / b3_ms,
             steps_per_s=2 * seg / (ms / 1e3), finite_reading_share=finite)
         check(finite_state(final) and float(final.reactor.time) == 2.0 * seg
               and series[1]["temp_outlet"].shape == (seg // rec,)
@@ -698,7 +705,9 @@ def main() -> int:
               f"HIL-3600 rk4 ({m_rk4}x4) 1x20, 2 chained segments x{seg} "
               f"recorded every {rec}: {2 * seg / (ms / 1e3):.4e} steps/s; "
               f"{ms / 2:.2f} ms per segment, kernel {b3_ms:.2f} ms, physics "
-              f"alone {physics_ms:.2f} ms, bound {bound:.5f} ms ({bound_by});"
+              f"alone {physics_ms:.2f} ms (beyond it "
+              f"{1.0 - physics_ms / b3_ms:.1%}), bound {bound:.5f} ms "
+              f"({bound_by});"
               f" {finite:.3f} of readings finite")
 
         # PLANT-4096: the instrumented ensemble
@@ -724,7 +733,8 @@ def main() -> int:
             plants=n_plants, steps=n_steps, record_every=rec, substeps=m,
             setup_s=setup_s, wrapper_ms=ms, kernel_ms=b3_ms,
             physics_ms=physics_ms, bound_ms=bound, bound_by=bound_by,
-            plant_steps_per_s=rate, sensor_share=1.0 - physics_ms / b3_ms,
+            plant_steps_per_s=rate,
+            beyond_physics_share=1.0 - physics_ms / b3_ms,
             finite_ph_outlet_share_by_record=share.tolist())
         check(finite_state(final)
               and readings["pH_outlet"].shape == (n_steps // rec, n_plants)
@@ -733,7 +743,7 @@ def main() -> int:
               f"PLANT-4096 rk4 ({m}x4) 4096x20 x{n_steps} recorded every "
               f"{rec}: {rate:.4e} plant-steps/s; set-up {setup_s:.3f} s, "
               f"wrapper {ms:.2f} ms, kernel {b3_ms:.2f} ms, physics alone "
-              f"{physics_ms:.2f} ms (sensor phase "
+              f"{physics_ms:.2f} ms (beyond it "
               f"{1.0 - physics_ms / b3_ms:.1%}), bound {bound:.3f} ms "
               f"({bound_by}); finite pH_outlet readings {float(share[0]):.4f}"
               f" at step {rec} falling to {float(share[-1]):.4f} at step "

@@ -57,4 +57,37 @@ __device__ __forceinline__ void plant_step_words(unsigned long long seed,
   }
 }
 
+// The words of one sensor in step ``step``: the sensor's words are
+// ``n_words`` (at most 11) consecutive words of the plant's 76, which lie in
+// ``n_blocks`` (at most 4) consecutive blocks from ``block`` on, starting
+// ``skip`` words into the first. Only those blocks are generated, with the
+// counters plant_step_words gives them, and the words are shifted down by
+// ``skip`` with selects so that they stay in registers: ``out[k]`` is word
+// ``4 * block + skip + k`` of the plant's step (k < n_words; the rest are
+// left unspecified).
+constexpr int kMaxSensorWords = 11;
+constexpr int kMaxSensorBlocks = 4;
+
+__device__ __forceinline__ void sensor_step_words(
+    unsigned long long seed, uint32_t step, uint32_t plant, int block,
+    int n_blocks, int skip, uint32_t out[kMaxSensorWords]) {
+  const uint32_t k0 = static_cast<uint32_t>(seed);
+  const uint32_t k1 = static_cast<uint32_t>(seed >> 32);
+  uint32_t raw[4 * kMaxSensorBlocks] = {};
+#pragma unroll
+  for (int j = 0; j < kMaxSensorBlocks; ++j) {
+    if (j < n_blocks) {
+      philox4x32_10(step, plant, static_cast<uint32_t>(block + j), 0u, k0,
+                    k1, raw + 4 * j);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxSensorWords; ++k) {
+    out[k] = skip == 0   ? raw[k]
+             : skip == 1 ? raw[k + 1]
+             : skip == 2 ? raw[k + 2]
+                         : raw[k + 3];
+  }
+}
+
 }  // namespace wt

@@ -1,6 +1,11 @@
 // The seven-instrument suite of the fused plant kernel (B3): the base
 // sensor pipeline and the pH, chlorine, flow and temperature overlays as
-// device functions, one thread per plant.
+// device functions, one thread per (plant, sensor).
+//
+// A read is split in two: the kind's true value, then base_read, which
+// every kind shares, then the kind's overlay on the base reading. A warp
+// whose lanes read sensors of different kinds so runs base_read once,
+// converged, and diverges only for the overlays.
 //
 // Each function repeats ics_wt_physicsengine_torch/sensors/{base,ph,
 // chlorine,flow,temperature}.py operation by operation and in the same
@@ -345,15 +350,15 @@ __device__ __forceinline__ S nernst_compensated_ph(S temperature_coefficient,
   return ph_zone + temperature_coefficient * (t_zone - S(25.0));
 }
 
-// ``delayed_true``: the delayed Nernst-compensated sample; ``temp``: the
-// tapped zone's temperature now. n: 8 normals, u: 3 uniforms.
+// The pH overlay (sensors/ph.py::ph_read after base_read on the delayed
+// Nernst-compensated sample): ``out`` is the base reading, ``prev_ts`` and
+// ``had_prev`` the carry's last timestamp and history flag before it,
+// ``temp`` the tapped zone's temperature now. n: 8 normals, u: 3 uniforms.
 template <typename S>
-__device__ __forceinline__ S ph_read(const BaseParams<S>& p, BaseCarry<S>& c,
-                                     PhCarry<S>& o, S delayed_true, S temp,
-                                     S t, const S* n, const S* u) {
-  const S prev_ts = c.last_timestamp;
-  const bool had_prev = c.has_history;
-  const S out = base_read(p, c, delayed_true, t, n, u);
+__device__ __forceinline__ S ph_overlay(const BaseParams<S>& p,
+                                        BaseCarry<S>& c, PhCarry<S>& o,
+                                        S out, S prev_ts, bool had_prev,
+                                        S temp, S t, const S* n) {
   const bool finite = is_finite(out);
   const S n_elec = n[5], n_junc = n[6], n_foul = n[7];
 
@@ -431,17 +436,15 @@ __device__ __forceinline__ S chlorine_true_value(S chlorine_zone, S ph_zone) {
   return chlorine_zone * (S(0.5) + S(0.5) * fraction_hocl);
 }
 
-// n: 7 normals, u: 3 uniforms. No interfering species is simulated: ozone,
+// The chlorine overlay (sensors/chlorine.py::chlorine_read after
+// base_read on chlorine_true_value), arguments as ph_overlay's. n: 7
+// normals, u: 3 uniforms. No interfering species is simulated: ozone,
 // hydrogen peroxide and chlorine dioxide are zero, as on the plant path.
 template <typename S>
-__device__ __forceinline__ S chlorine_read(
+__device__ __forceinline__ S chlorine_overlay(
     const BaseParams<S>& p, const ChlorineParams<S>& q, int sensor_type,
-    BaseCarry<S>& c, ChlorineCarry<S>& o, S chlorine_zone, S ph_zone, S t,
-    const S* n, const S* u) {
-  const S prev_ts = c.last_timestamp;
-  const bool had_prev = c.has_history;
-  const S true_value = chlorine_true_value(chlorine_zone, ph_zone);
-  const S out = base_read(p, c, true_value, t, n, u);
+    BaseCarry<S>& c, ChlorineCarry<S>& o, S out, S prev_ts, bool had_prev,
+    S t, const S* n) {
   const bool finite = is_finite(out);
   const S n1 = n[5], n2 = n[6];
   const S dt = nmax(t - prev_ts, S(0.0));
@@ -499,15 +502,14 @@ struct FlowCarry {  // _OVERLAY_C["flow"] order
       fluid_conductivity;
 };
 
-// n: 6 normals, u: 4 uniforms.
+// The flow overlay (sensors/flow.py::flow_read after base_read on the
+// total inflow), arguments as ph_overlay's. n: 6 normals, u: 4 uniforms.
 template <typename S>
-__device__ __forceinline__ S flow_read(const BaseParams<S>& p, S full_scale,
-                                       int sensor_type, BaseCarry<S>& c,
-                                       FlowCarry<S>& o, S flow_rate, S t,
-                                       const S* n, const S* u) {
-  const S prev_ts = c.last_timestamp;
-  const bool had_prev = c.has_history;
-  const S out = base_read(p, c, flow_rate, t, n, u);
+__device__ __forceinline__ S flow_overlay(const BaseParams<S>& p,
+                                          S full_scale, int sensor_type,
+                                          BaseCarry<S>& c, FlowCarry<S>& o,
+                                          S out, S prev_ts, bool had_prev,
+                                          S t, const S* n, const S* u) {
   const bool finite = is_finite(out);
   const S n1 = n[5];
   const S u2 = u[3];
@@ -561,14 +563,12 @@ struct TemperatureCarry {  // _OVERLAY_C["temp"] order
   S cold_junction_temp, cold_junction_drift;
 };
 
-// ``delayed_true``: the delayed zone temperature. n: 7 normals, u: 3
-// uniforms.
+// The temperature overlay (sensors/temperature.py::temperature_read after
+// base_read on the delayed zone temperature). n: 7 normals, u: 3 uniforms.
 template <typename S>
-__device__ __forceinline__ S temperature_read(
+__device__ __forceinline__ S temperature_overlay(
     const BaseParams<S>& p, const TemperatureParams<S>& q, int sensor_type,
-    BaseCarry<S>& c, TemperatureCarry<S>& o, S delayed_true, S t,
-    const S* n, const S* u) {
-  const S out = base_read(p, c, delayed_true, t, n, u);
+    BaseCarry<S>& c, TemperatureCarry<S>& o, S out, const S* n) {
   const bool finite = is_finite(out);
   const S n1 = n[5], n2 = n[6];
 

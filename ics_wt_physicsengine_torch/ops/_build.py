@@ -133,7 +133,7 @@ def bind(name: str, path: Path):
             [i32, ptr, ptr, i32, ptr, i32]      # type, tables, rkc, stages
             + [ptr] * 5 + [u64]                 # sensor tables, words, seed
             + [ptr] * 13                        # time, state, outputs
-            + [i32] * 5 + [f64, f64, ptr])      # sizes, h_step, dt, stream
+            + [i32] * 8 + [f64, f64, ptr])      # sizes, h_step, dt, stream
         lib.wt_plant_rollout.restype = i32
         lib.wt_philox_words.argtypes = [u64, i32, i32, ptr, ptr]
         lib.wt_philox_words.restype = i32

@@ -12,11 +12,19 @@ normals and uniforms, zone taps, four sample-line histories, base pipeline
 plus overlay), and the readings are recorded every ``record_every`` steps.
 Forcing is constant or a ``[n_steps]`` schedule that all plants share.
 
+Layout (``plant_geometry``): a block holds whole plants on two kinds of
+warp, physics warps with one thread per (plant, zone) as in B1/B2, and
+sensor warps with one lane per (plant, sensor), sensor-major. The sensor
+lanes read step s while the physics warps compute step s + 1, so a step
+costs about the larger of the two, not their sum. Each lane draws only the
+Philox blocks that hold its own words (``STATICS_FIELDS``: first block,
+skip, block count).
+
 What bounds it on an H100: operations (``plant_ops`` / 67 TFLOP/s of
 non-tensor FP32). The tables move once per launch (``plant_bytes``); with
 injected words (``rng="bits"``) the ``[n_steps, 76, B]`` word tensor is
 read too. A single plant is one block on one SM and is bound by the latency
-of its dependent chain.
+of its dependent chains.
 
 Sample line: with a fixed step the nearest-timestamp ring lookup of
 ``sensors.base`` is "the tap from round(delay / dt) steps ago", a circular
@@ -212,6 +220,81 @@ def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
     words = n_steps * N_WORDS * batch * 4 if bits else 0
     return 2 * state + tables + forcing + 2 * carries + 2 * hist \
         + readings + words
+
+
+# Largest block of kernel B3 and most physics threads in one
+# (csrc/fused_plant.cu: kMaxBlockThreads; fused_rollout.cuh:
+# kThreadsPerBlock, the size of the shared exchange buffers).
+MAX_BLOCK_THREADS = 448
+MAX_PHYSICS_THREADS = 256
+WARP = 32
+
+
+def _warps(threads: int) -> int:
+    return -(-threads // WARP)
+
+
+@dataclass(frozen=True)
+class PlantGeometry:
+    """Kernel B3's launch geometry: ``plants_per_block`` whole plants per
+    block on ``physics_threads`` physics threads (one per (plant, zone),
+    padded to whole warps) followed by the sensor lanes (one per (plant,
+    sensor), sensor-major: sensor k's lanes start at lane k *
+    ``sensor_stride``), padded to whole warps."""
+
+    plants_per_block: int
+    physics_threads: int
+    sensor_stride: int
+
+    @property
+    def sensor_threads(self) -> int:
+        return _warps(len(SENSORS) * self.sensor_stride) * WARP
+
+    @property
+    def block_threads(self) -> int:
+        return self.physics_threads + self.sensor_threads
+
+    def grid(self, batch: int) -> int:
+        return -(-batch // self.plants_per_block)
+
+    def sensor_lane(self, lane: int):
+        """``(sensor, local plant)`` of sensor lane ``lane`` (counted from
+        the first sensor warp), or None for a padding lane."""
+        sensor, local_plant = divmod(lane, self.sensor_stride)
+        if sensor < len(SENSORS) and local_plant < self.plants_per_block:
+            return sensor, local_plant
+        return None
+
+
+def plant_geometry(n_zones: int, batch: int) -> PlantGeometry:
+    """The block layout of kernel B3 for ``n_zones`` zones and ``batch``
+    plants: of the plant counts that fit (at most ``batch``, physics
+    threads at most ``MAX_PHYSICS_THREADS``, the block at most
+    ``MAX_BLOCK_THREADS``), the one that needs the fewest warps per plant,
+    the larger on a tie. 20 zones give 8 plants on 5 physics warps and 2
+    sensor warps; one zone 32 plants; 128 zones 2 plants.
+
+    Where all sensor lanes would share one warp (at most 4 plants a block:
+    a small batch), each sensor gets a warp of its own if the block still
+    fits, so that the seven pipelines run side by side rather than one
+    after another in a diverged warp."""
+    if not 1 <= n_zones <= F.MAX_ZONES or batch < 1:
+        raise ValueError(f"no B3 geometry for n_zones={n_zones}, "
+                         f"batch={batch}")
+    best = None
+    for plants in range(1, min(MAX_PHYSICS_THREADS // n_zones, batch) + 1):
+        warps = _warps(plants * n_zones) + _warps(len(SENSORS) * plants)
+        if warps * WARP > MAX_BLOCK_THREADS:
+            continue
+        key = (warps / plants, -plants)
+        if best is None or key < best[0]:
+            best = (key, plants)
+    plants = best[1]
+    physics = _warps(plants * n_zones) * WARP
+    spread = len(SENSORS) * plants <= WARP \
+        and physics + len(SENSORS) * WARP <= MAX_BLOCK_THREADS
+    return PlantGeometry(plants_per_block=plants, physics_threads=physics,
+                         sensor_stride=WARP if spread else plants)
 
 
 def reset_launch_counts() -> None:
@@ -750,22 +833,42 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
 # ---------------------------------------------------------------------------
 
 
-def _statics_array(statics):
-    """The kernel's ``PlantStatics`` as a C int array: zone, type,
-    param_col, float_col, int_col and word per sensor, then d_max per
-    sample line."""
+# The fields of the kernel's ``PlantStatics`` (csrc/fused_plant.cu), in
+# order: one int per sensor each, then ``d_max`` per sample line.
+STATICS_FIELDS = ("zone", "type", "param_col", "float_col", "int_col",
+                  "word", "n_words", "block", "skip", "n_blocks", "d_max")
+
+
+def statics_fields(statics) -> dict:
+    """``PlantStatics`` as ``{field: [int, ...]}``: per sensor its tapped
+    zone, type code, first parameter, float carry and integer carry
+    columns, its words in a step (first, count) and the Philox blocks that
+    hold them (first, skip into it, count); per sample line ``d_max``."""
     by_attr = {attr: (zone, typ, d_max)
                for attr, zone, typ, _, d_max in statics}
-    zone = [by_attr[attr][0] for _, attr, _ in SENSORS]
-    code = [TYPE_CODES[kind](by_attr[attr][1]) for _, attr, kind in SENSORS]
-    first = _BASE_P[0], _BASE_C[0][0]
-    pcol = [_PCOL[(attr, "base", first[0])] for _, attr, _ in SENSORS]
-    fcol = [_FCOL[(attr, "base", first[1])] for _, attr, _ in SENSORS]
-    icol = [_ICOL[(attr, "base", "has_calibration")]
-            for _, attr, _ in SENSORS]
-    word = [_WORD_OFFSET[attr] for _, attr, _ in SENSORS]
-    d_max = [by_attr[attr][2] for attr in _LINE_ATTRS]
-    flat = zone + code + pcol + fcol + icol + word + d_max
+    out = {name: [] for name in STATICS_FIELDS}
+    for _, attr, kind in SENSORS:
+        word, n_words = _WORD_OFFSET[attr], words_per_sensor(kind)
+        block = word // 4
+        out["zone"].append(by_attr[attr][0])
+        out["type"].append(TYPE_CODES[kind](by_attr[attr][1]))
+        out["param_col"].append(_PCOL[(attr, "base", _BASE_P[0])])
+        out["float_col"].append(_FCOL[(attr, "base", _BASE_C[0][0])])
+        out["int_col"].append(_ICOL[(attr, "base", "has_calibration")])
+        out["word"].append(word)
+        out["n_words"].append(n_words)
+        out["block"].append(block)
+        out["skip"].append(word - 4 * block)
+        out["n_blocks"].append((word + n_words - 1) // 4 - block + 1)
+    out["d_max"] = [by_attr[attr][2] for attr in _LINE_ATTRS]
+    return out
+
+
+def _statics_array(statics):
+    """``statics_fields`` flattened in ``STATICS_FIELDS`` order as the C
+    int array the kernel copies into its ``PlantStatics``."""
+    fields = statics_fields(statics)
+    flat = [v for name in STATICS_FIELDS for v in fields[name]]
     return (ctypes.c_int * len(flat))(*flat)
 
 
@@ -816,6 +919,7 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
         raise ValueError(f"n_steps={n_steps} must be a multiple of "
                          f"record_every={record_every}")
     words = _words_for(bits, batch, n_steps, device)
+    geometry = plant_geometry(n_zones, batch)
 
     lib = _build.load("fused_plant")
     out = PlantResult(
@@ -845,7 +949,8 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
         out.carry_int.data_ptr(), ctypes.cast(hist_ptrs, ctypes.c_void_p),
         out.readings.data_ptr(),
         ctypes.cast(_statics_array(tables.statics), ctypes.c_void_p),
-        batch, n_zones, n_steps, substeps, record_every, h_step, dt,
+        batch, n_zones, geometry.plants_per_block, geometry.physics_threads,
+        geometry.sensor_stride, n_steps, substeps, record_every, h_step, dt,
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "

@@ -169,6 +169,10 @@ def b1_vs_cpu(n_plants, device, *, substeps, n_steps) -> float:
 # ``bench_schedule``, injected words and the Philox stream, every step
 # recorded and every tenth, per-plant line delays, non-default zone taps,
 # and both working types. 60 steps cross the 30-step sample-line delay.
+# The zone-count extremes fix the block layout's extremes
+# (``fused_plant.plant_geometry``): one zone packs 32 plants into a block,
+# 224 sensor lanes beside one physics warp; 128 zones give two plants a
+# block, eight physics warps beside one sensor warp.
 B3_CASES = {
     "single-z20-rk4-const-bits": dict(
         n_zones=20, n_plants=1, integrator="rk4", scheduled=False,
@@ -195,6 +199,12 @@ B3_CASES = {
     "single-z20-fast-sched-bits-f64": dict(
         n_zones=20, n_plants=1, integrator="fast", scheduled=True,
         rng="bits", record_every=1, dtype=torch.float64),
+    "batch64-z1-rk4-const-philox-rec10-delays": dict(
+        n_zones=1, n_plants=64, integrator="rk4", scheduled=False,
+        rng="philox", record_every=10, delays=True),
+    "batch64-z128-fast-sched-philox": dict(
+        n_zones=128, n_plants=64, integrator="fast", scheduled=True,
+        rng="philox", record_every=1),
 }
 B3_STEPS = 60
 

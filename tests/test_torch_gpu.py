@@ -152,6 +152,30 @@ def test_b3_rejects_what_it_cannot_run(cuda):
         FP.plant_kernel(cpu_tables, dt=1.0, substeps=3, n_steps=4)
 
 
+@pytest.mark.parametrize("geometry", [
+    FP.PlantGeometry(8, 150, 8),    # physics threads not whole warps
+    FP.PlantGeometry(8, 128, 8),    # 8 x 20 zones need 160
+    FP.PlantGeometry(8, 160, 4),    # sensor lanes of two plants overlap
+    FP.PlantGeometry(12, 256, 32),  # 256 + 7 x 32 threads exceed 448
+], ids=["ragged-warp", "too-few-physics", "stride-below-plants",
+        "block-too-large"])
+def test_b3_refuses_a_geometry_it_cannot_run(cuda, geometry, monkeypatch):
+    """The kernel returns cudaErrorInvalidValue for a layout it cannot run
+    (the wrapper raises and counts no launch); the wrapper's own geometry
+    for the same tables runs."""
+    params, plant = K.plant_case(20, 16, torch.float32, cuda)
+    tables = FP.build_tables(params, plant, K.BC, dt=1.0, n_steps=4)
+    FP.reset_launch_counts()
+    monkeypatch.setattr(FP, "plant_geometry", lambda n_zones, batch: geometry)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FP.plant_kernel(tables, dt=1.0, substeps=3, n_steps=4)
+    assert FP.LAUNCHES["plant_rollout_fused"] == 0
+    monkeypatch.undo()
+    FP.plant_kernel(tables, dt=1.0, substeps=3, n_steps=4)
+    torch.cuda.synchronize()
+    assert FP.LAUNCHES["plant_rollout_fused"] == 1
+
+
 @pytest.mark.parametrize("case", sorted(K.B4_CASES))
 def test_b4_matches_plain(cuda, case):
     """The Newton pH kernel against its plain version: within ``K.TOL``,
