@@ -9,7 +9,8 @@ Phases:
     time and the -Xptxas -v register/spill report);
  3. kernels B1 and B2 against their plain PyTorch versions on the card, in
     float64 and float32, for RK4, RKC-strict and RKC-fast, on a single
-    20-zone plant and 1024-plant Monte-Carlo batches at 5 and 20 zones (200
+    20-zone plant, 1024-plant Monte-Carlo batches at 5 and 20 zones (the
+    warp layout) and a 64-plant batch at 33 zones (the packed layout; 200
     steps, recorded every 10), plus the 4096 x 20 main-path shape; B2 on
     the bench's dosing schedule; a constant schedule through B2 equal to
     B1; B1 in float64 against the plain version on the CPU (the tables and
@@ -176,6 +177,7 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    layouts = {F.PACKED: "packed", F.WARP: "warp"}
     kernels = {name: {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": None, "ms": None, "plain_ms": None,
@@ -227,19 +229,24 @@ def main() -> int:
         for dtype in (torch.float64, f32):
             tol, tag = K.TOL[dtype], str(dtype)[6:]
             for integrator in ("rk4", "strict", "fast"):
-                for n_zones, n_plants in ((20, 1), (5, 1024), (20, 1024)):
+                for n_zones, n_plants in ((20, 1), (5, 1024), (20, 1024),
+                                          (33, 64)):
                     m, s = K.stiff_plan(n_zones, integrator)
+                    g = F.rollout_geometry(n_zones, n_plants)
                     got, err = K.b1_vs_plain(
                         n_zones, n_plants, dtype, dev, substeps=m, stages=s,
                         n_steps=200, record_every=10)
                     rows.append(dict(kernel="rollout_fused", dtype=tag,
                                      integrator=integrator, n_zones=n_zones,
                                      n_plants=n_plants, substeps=m, stages=s,
+                                     layout=layouts[g.layout],
                                      max_abs_err=err))
                     check(err <= tol and all(
                         bool(torch.isfinite(x).all()) for x in got[:3]),
                         f"B1 {tag} {integrator} ({m}x{s or 4}) "
-                        f"{n_plants}x{n_zones}: max|kernel-plain| {err:.3e}"
+                        f"{n_plants}x{n_zones} ({layouts[g.layout]} layout, "
+                        f"{g.plants_per_block} plants on {g.block_threads} "
+                        f"threads a block): max|kernel-plain| {err:.3e}"
                         f" <= {tol:.0e}")
 
             m, s = R.default_rkc_plan(R.ReactorConfiguration(n_zones=20), DT,
@@ -513,6 +520,7 @@ def main() -> int:
                 bound = F.rollout_ops(n_plants, 20, n_steps, m, s) \
                     / FP32_PEAK * 1e3
                 rate = n_plants * n_steps / (wrapper_ms / 1e3)
+                g = F.rollout_geometry(20, n_plants)
                 finite = all(bool(torch.isfinite(x).all()) for x in (
                     final.pH, final.chlorine, final.temperature,
                     stats["chlorine"]["quantiles"], stats["pH"]["std"]))
@@ -521,7 +529,8 @@ def main() -> int:
                     plants=n_plants, steps=n_steps, substeps=m, stages=s,
                     setup_s=setup_s, wrapper_ms=wrapper_ms,
                     kernel_ms=kernel_ms, bound_ms=bound,
-                    plant_steps_per_s=rate,
+                    layout=layouts[g.layout], blocks=g.grid(n_plants),
+                    block_threads=g.block_threads, plant_steps_per_s=rate,
                     outlet_chlorine_p05_median_p95=q,
                     outlet_pH_median=float(stats["pH"]["quantiles"][1, -1]),
                     exceedance={k: float(v) for k, v in probs.items()})
@@ -533,7 +542,9 @@ def main() -> int:
                       f"{n_plants} plants x {n_steps} steps {integrator} "
                       f"({m}x{s or 4}): {rate:.4e} plant-steps/s; wrapper "
                       f"{wrapper_ms:.2f} ms, kernel {kernel_ms:.2f} ms, "
-                      f"bound {bound:.3f} ms; outlet Cl p05/median/p95 "
+                      f"bound {bound:.3f} ms ({layouts[g.layout]} layout, "
+                      f"{g.grid(n_plants)} blocks of {g.block_threads} "
+                      f"threads); outlet Cl p05/median/p95 "
                       f"{q[0]:.4f}/{q[1]:.4f}/{q[2]:.4f} mg/L; "
                       "P(any violation) "
                       f"{float(probs['p_any_violation']):.4f}")

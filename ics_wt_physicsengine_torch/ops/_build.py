@@ -124,7 +124,7 @@ def bind(name: str, path: Path):
         for fn in (lib.wt_rollout_fused, lib.wt_rollout_scheduled):
             fn.argtypes = [i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr,
                            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f64,
-                           ptr]
+                           i32, i32, i32, ptr]
             fn.restype = i32
         lib.wt_error_string.argtypes = [i32]
         lib.wt_error_string.restype = ctypes.c_char_p

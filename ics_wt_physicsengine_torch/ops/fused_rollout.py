@@ -15,14 +15,17 @@ ctypes):
 Each launch advances every plant through ``n_steps x substeps`` RK4 steps,
 or s-stage RKC2 steps, of the 3-field zone ODE, clamps the state after
 every step and optionally records it every ``record_every`` steps. One
-thread holds one (plant, zone); a block packs whole plants and exchanges
-zone neighbours through shared memory.
+thread holds one (plant, zone). The launch geometry is this module's
+(``rollout_geometry``), sized by the batch: whole plants packed into a
+block that exchanges zone neighbours through shared memory, or whole plants
+inside one warp that exchange them by warp shuffle.
 
 What bounds them on an H100: operations. The state is read and written once
 per launch while every zone does ``DERIV_OPS`` operations per derivative
 evaluation, so the least time is ``rollout_ops(...) / 67 TFLOP/s``
-(non-tensor FP32). A single plant is one block on one SM and is bound by
-the latency of its chain of dependent evaluations, far above that.
+(non-tensor FP32). A batch that leaves the card's schedulers few warps is
+bound by the latency of each plant's chain of dependent evaluations, far
+above that.
 
 Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (a direct transcription of the reference kernel's
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from dataclasses import fields
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -98,6 +101,125 @@ def rollout_ops(batch: int, n_zones: int, n_steps: int, substeps: int,
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry
+# ---------------------------------------------------------------------------
+
+# csrc/fused_rollout.cu: Layout, kThreadsPerBlock (the packed layout's
+# largest block, the size of its shared exchange buffers) and
+# kMaxWarpsPerBlock (the warp layout's).
+PACKED, WARP = 0, 1
+WARP_SIZE = 32
+MAX_BLOCK_THREADS = 256
+MAX_WARPS_PER_BLOCK = 4
+# The H100 SXM's warp schedulers (132 multiprocessors of 4), and the rule's
+# two thresholds (``rollout_geometry``).
+SCHEDULERS = 132 * 4
+BUSY_WARPS_PER_SCHEDULER = 4
+WARP_COST_RATIO = 1.15
+
+
+@dataclass(frozen=True)
+class RolloutGeometry:
+    """Kernels B1/B2's launch geometry: ``layout`` (``PACKED`` or
+    ``WARP``), ``plants_per_block`` whole plants on ``block_threads``
+    threads a block."""
+
+    layout: int
+    plants_per_block: int
+    block_threads: int
+
+    def grid(self, batch: int) -> int:
+        return -(-batch // self.plants_per_block)
+
+    def cell(self, tid: int, n_zones: int):
+        """``(local plant, zone, real)`` of thread ``tid`` of a block, as
+        the kernel maps it (``cell_of``): a padding thread (packed) runs a
+        one-zone copy of the block's first plant, an idle lane (warp) a copy
+        of zone ``lane - P_w * Z`` of its warp's last plant, ``P_w = 32 //
+        Z``; neither stores."""
+        if self.layout == WARP:
+            per_warp = WARP_SIZE // n_zones
+            warp, lane = divmod(tid, WARP_SIZE)
+            raw, zone = divmod(lane, n_zones)
+            real = raw < per_warp
+            if not real:
+                raw, zone = per_warp - 1, lane - per_warp * n_zones
+            return warp * per_warp + raw, zone, real
+        real = tid < self.plants_per_block * n_zones
+        local, zone = divmod(tid, n_zones) if real else (0, 0)
+        return local, zone, real
+
+
+def _warps(threads: int) -> int:
+    return -(-threads // WARP_SIZE)
+
+
+def packed_geometry(n_zones: int, batch: int) -> RolloutGeometry:
+    """The packed layout: of the plant counts that fit a block (at most
+    ``batch`` plants, at most ``MAX_BLOCK_THREADS`` threads), the one with
+    the fewest warps per plant, the larger on a tie. 20 zones give 8 plants
+    on 5 warps; a single plant one warp."""
+    best = None
+    for plants in range(1, min(MAX_BLOCK_THREADS // n_zones, batch) + 1):
+        key = (_warps(plants * n_zones) / plants, -plants)
+        if best is None or key < best[0]:
+            best = (key, plants)
+    plants = best[1]
+    return RolloutGeometry(PACKED, plants,
+                           _warps(plants * n_zones) * WARP_SIZE)
+
+
+def warp_geometry(n_zones: int, batch: int) -> RolloutGeometry:
+    """The warp layout (``n_zones <= 32``): ``32 // n_zones`` plants a
+    warp, up to ``MAX_WARPS_PER_BLOCK`` warps a block, no more warps than
+    the batch needs."""
+    if n_zones > WARP_SIZE:
+        raise ValueError(f"a {n_zones}-zone plant does not fit a warp")
+    per_warp = WARP_SIZE // n_zones
+    warps = min(MAX_WARPS_PER_BLOCK, -(-batch // per_warp))
+    return RolloutGeometry(WARP, warps * per_warp, warps * WARP_SIZE)
+
+
+def rollout_geometry(n_zones: int, batch: int) -> RolloutGeometry:
+    """The launch geometry of B1/B2 for ``n_zones`` zones and ``batch``
+    plants.
+
+    For as many warps, the warp layout runs 11-18% faster than the packed
+    one (no barrier, no shared memory, each interface rate computed once),
+    but where ``32 % n_zones`` lanes of each warp idle it needs more warps
+    per plant (1.6x at 20 zones), and once the schedulers are busy those
+    cost issue slots. So the rule: the warp layout where a plant fits a
+    warp and either its warps per plant are at most ``WARP_COST_RATIO``
+    times the packed layout's (zone counts 1-8, 10, 14-16, 28-32 at a large
+    batch), or the launch needs at most ``BUSY_WARPS_PER_SCHEDULER`` warps
+    for each of the card's ``SCHEDULERS``; the packed layout otherwise.
+
+    The numbers that chose it (B1, RK4 3 x 4, float32, both layouts in
+    turns on an H100 80GB HBM3 at 700 W; ``tools/torch_rollout_compare.py
+    --sweep``, PERF.md): warp / packed time at 20 zones 0.84 for one plant,
+    0.74-0.75 from 32 to 528 plants, 0.83 at 1056, 1.00 at 2112 (four warps
+    a scheduler), 1.27 at 4096; at 4096 and 32768 plants 0.83 / 0.88 at 5
+    zones, 0.82 / 0.87 at 8, 0.86 / 0.87 at 16, 0.89 / 0.86 at 32, and at
+    11 zones (1.44x the warps a plant) 0.86 at 4096 (2048 warps) but 1.24
+    at 32768.
+    """
+    if not 1 <= n_zones <= MAX_ZONES or batch < 1:
+        raise ValueError(f"no B1/B2 geometry for n_zones={n_zones}, "
+                         f"batch={batch}")
+    if n_zones > WARP_SIZE:
+        return packed_geometry(n_zones, batch)
+    warp, packed = warp_geometry(n_zones, batch), \
+        packed_geometry(n_zones, batch)
+    warps = -(-batch // (WARP_SIZE // n_zones))
+    ratio = (warp.block_threads / warp.plants_per_block) \
+        / (packed.block_threads / packed.plants_per_block)
+    if ratio <= WARP_COST_RATIO \
+            or warps <= BUSY_WARPS_PER_SCHEDULER * SCHEDULERS:
+        return warp
+    return packed
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +501,7 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
                         device=ph.device) for _ in range(3)] if k else []
     h_step = dt / substeps
     rkc = _rkc_host_table(stages, h_step) if stages is not None else None
+    g = rollout_geometry(n_zones, batch)
     fn = lib.wt_rollout_scheduled if name == "rollout_scheduled_fused" \
         else lib.wt_rollout_fused
     err = fn(int(dtype == torch.float64), ptab.data_ptr(), forcing.data_ptr(),
@@ -386,7 +509,8 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
              stages or 0, ph.data_ptr(), cl.data_ptr(), t.data_ptr(),
              *(x.data_ptr() for x in outs),
              *((x.data_ptr() for x in traj) if k else (None, None, None)),
-             batch, n_zones, n_steps, substeps, k, h_step,
+             batch, n_zones, n_steps, substeps, k, h_step, g.layout,
+             g.plants_per_block, g.block_threads,
              torch.cuda.current_stream(ph.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "

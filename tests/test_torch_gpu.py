@@ -34,24 +34,96 @@ def cuda():
     return torch.device("cuda")
 
 
+# Zone counts on both sides of the layout switch (warp layout up to 32
+# zones, packed above) and batches of one plant, a few, and 50 (the last
+# block partly empty in either layout: 13 warp blocks of 4 warps at 20
+# zones, the last with 2; 25 packed blocks of 2 plants at 128 zones, 8 of 7
+# at 33, the last with 1).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n_zones,n_plants", [(20, 1), (5, 37), (20, 50)])
+@pytest.mark.parametrize("n_zones,n_plants", [
+    (1, 1), (1, 50), (20, 1), (5, 37), (20, 7), (20, 50), (32, 7),
+    (33, 1), (33, 50), (128, 7)])
 @pytest.mark.parametrize("substeps,stages", [(3, None), (1, 4), (2, 3)])
 def test_b1_matches_plain(cuda, dtype, n_zones, n_plants, substeps, stages):
     got, err = K.b1_vs_plain(n_zones, n_plants, dtype, cuda,
                              substeps=substeps, stages=stages, n_steps=40,
                              record_every=8)
-    assert err <= K.TOL[dtype]
+    assert err == 0.0
     assert torch.equal(got[3][0][-1], got[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_b2_matches_plain_and_constant_schedule_equals_b1(cuda, dtype):
-    _, err = K.b2_vs_plain(20, 13, dtype, cuda, substeps=3, stages=None,
+@pytest.mark.parametrize("layout", ["packed", "warp"])
+@pytest.mark.parametrize("n_zones,n_plants", [(20, 50), (11, 13), (32, 1)])
+def test_b1_either_layout_matches_plain(cuda, monkeypatch, dtype, layout,
+                                        n_zones, n_plants):
+    """Both layouts at the same sizes, whichever ``rollout_geometry``
+    picks: bit-equal to the plain version and to each other."""
+    make = F.packed_geometry if layout == "packed" else F.warp_geometry
+    monkeypatch.setattr(F, "rollout_geometry", make)
+    got, err = K.b1_vs_plain(n_zones, n_plants, dtype, cuda, substeps=2,
+                             stages=None, n_steps=30, record_every=10)
+    assert err == 0.0
+    monkeypatch.undo()
+    ptab, btab, y = K.tables(n_zones, n_plants, dtype, cuda)
+    shipped = F.rollout_kernel(ptab, btab, *y, dt=K.DT, substeps=2,
+                               n_steps=30, record_every=10)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], shipped[:3]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_plants", [1, 13])
+def test_b2_matches_plain_and_constant_schedule_equals_b1(cuda, dtype,
+                                                          n_plants):
+    _, err = K.b2_vs_plain(20, n_plants, dtype, cuda, substeps=3,
+                           stages=None, n_steps=30, record_every=5)
+    assert err == 0.0
+    _, err = K.b2_vs_plain(20, n_plants, dtype, cuda, substeps=1, stages=4,
                            n_steps=30, record_every=5)
-    assert err <= K.TOL[dtype]
-    assert K.constant_schedule_equals_b1(20, 13, dtype, cuda, substeps=3,
-                                         stages=4, n_steps=30)
+    assert err == 0.0
+    for stages in (None, 4):
+        assert K.constant_schedule_equals_b1(20, n_plants, dtype, cuda,
+                                             substeps=3, stages=stages,
+                                             n_steps=30)
+
+
+@pytest.mark.parametrize("geometry", [
+    F.RolloutGeometry(F.PACKED, 8, 150),    # threads not whole warps
+    F.RolloutGeometry(F.PACKED, 8, 128),    # 8 x 20 zones need 160
+    F.RolloutGeometry(F.PACKED, 8, 192),    # a whole warp of padding
+    F.RolloutGeometry(F.PACKED, 16, 320),   # above 256 threads
+    F.RolloutGeometry(F.WARP, 4, 64),       # 20 zones: one plant a warp
+    F.RolloutGeometry(F.WARP, 5, 160),      # above 4 warps
+    F.RolloutGeometry(2, 8, 160),           # no such layout
+], ids=["ragged-warp", "too-few-threads", "padding-warp", "block-too-large",
+        "plants-across-warps", "too-many-warps", "unknown-layout"])
+def test_b1_b2_refuse_a_geometry_they_cannot_run(cuda, geometry,
+                                                 monkeypatch):
+    """The kernels return cudaErrorInvalidValue for a layout they cannot
+    run (the wrapper raises and counts no launch); the wrapper's own
+    geometry for the same tables runs."""
+    ptab, btab, y = K.tables(20, 16, torch.float32, cuda)
+    sched = btab[:, :1].T.expand(4, -1).contiguous()
+    F.reset_launch_counts()
+    monkeypatch.setattr(F, "rollout_geometry",
+                        lambda n_zones, batch: geometry)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        F.rollout_kernel(ptab, btab, *y, dt=1.0, substeps=3, n_steps=4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        F.scheduled_kernel(ptab, sched, *y, dt=1.0, substeps=3)
+    assert F.LAUNCHES == {"rollout_fused": 0, "rollout_scheduled_fused": 0}
+    monkeypatch.undo()
+    F.rollout_kernel(ptab, btab, *y, dt=1.0, substeps=3, n_steps=4)
+    F.scheduled_kernel(ptab, sched, *y, dt=1.0, substeps=3)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"rollout_fused": 1, "rollout_scheduled_fused": 1}
+    # a 33-zone plant does not fit a warp
+    ptab, btab, y = K.tables(33, 4, torch.float32, cuda)
+    monkeypatch.setattr(F, "rollout_geometry", lambda n_zones, batch:
+                        F.RolloutGeometry(F.WARP, 1, 32))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        F.rollout_kernel(ptab, btab, *y, dt=1.0, substeps=3, n_steps=4)
+    assert F.LAUNCHES["rollout_fused"] == 1
 
 
 def test_wrappers_launch_the_kernels_on_cuda_tensors(cuda):

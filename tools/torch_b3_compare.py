@@ -11,8 +11,7 @@ one CUDA card; and where the B3 wrapper's time goes at HIL-3600.
 
 The first argument is a csrc directory whose ``fused_plant.cu`` has the
 one-sensor-thread C interface of commit 4860970 (a 46-int ``statics``
-array, no geometry arguments); its ``fused_rollout.cu`` is built too, to
-hold kernels B1 and B2 against the current build. Each ``--variant`` is a
+array, no geometry arguments). Each ``--variant`` is a
 csrc directory with the current C interface (for example the current
 sources with another register cap), timed beside the shipped build.
 
@@ -26,9 +25,7 @@ each), their mean CUDA-event times, the physics alone (B1/B2 of the
 current build on the same tables), and whether every build's result is
 bit-equal to the old one's; where the current layout gives each sensor a
 warp of its own (one plant), the current build with the sensor lanes
-packed into one warp ("new-packed") runs too. Then B1 at MC-4096 x 7200
-(RK4 3 x 4, RKC-fast 1 x 4) and B2 at SCHED-1 x 32768, old build against
-new. Last, the
+packed into one warp ("new-packed") runs too. Then the
 wrapper at HIL-3600, two chained segments through plant_rollout_fused:
 host-clock milliseconds (each part ends in a synchronize) of the tables
 without and with the sample-line lead-in, the launch, and the rest (ring
@@ -200,7 +197,7 @@ def main() -> int:
     # ---- builds ---------------------------------------------------------
     variants = dict(v.split("=", 1) for v in args.variant)
     probe = Path(ROOT) / "dist" / "probe" / "builds"
-    jobs = {"old": (args.old, ("fused_plant", "fused_rollout"))}
+    jobs = {"old": (args.old, ("fused_plant",))}
     jobs.update({name: (Path(d), ("fused_plant",))
                  for name, d in variants.items()})
     with ThreadPoolExecutor(len(jobs) + 1) as pool:
@@ -210,8 +207,7 @@ def main() -> int:
                                     probe / item[0], _build.NVCC_FLAGS),
             jobs.items())))
         new_paths = new.result()
-    logs = {"new": {n: _build.build_info[n]["log"]
-                    for n in ("fused_plant", "fused_rollout")}}
+    logs = {"new": {"fused_plant": _build.build_info["fused_plant"]["log"]}}
     logs.update({name: {n: log for n, (_, log) in libs.items()}
                  for name, libs in built.items()})
     report = dict(card=card, torch=torch.__version__, reps=REPS,
@@ -230,12 +226,9 @@ def main() -> int:
     plant_libs.update({name: _build.bind("fused_plant",
                                          built[name]["fused_plant"][0])
                        for name in variants})
-    rollout_libs = {"old": _build.bind("fused_rollout",
-                                       built["old"]["fused_rollout"][0]),
-                    "new": _build.bind("fused_rollout",
-                                       new_paths["fused_rollout"])}
     _build.use({"fused_plant": plant_libs["new"],
-                "fused_rollout": rollout_libs["new"]})
+                "fused_rollout": _build.bind("fused_rollout",
+                                             new_paths["fused_rollout"])})
 
     def plant_run(name, tables, kw):
         if name == "old":
@@ -354,36 +347,6 @@ def main() -> int:
         runs = {name: plant_run(name, tables, kw) for name in names}
         ok &= in_turns(label, runs, dict(physics_ms=physics_ms))
     _build.use({"fused_plant": plant_libs["new"]})
-
-    # ---- B1 and B2, old build against new ----------------------------------
-    policy = R.BoundaryConditions(
-        inlet_flow_rate=5.0, inlet_pH=7.4, inlet_chlorine=0.2,
-        chlorine_flow_rate=0.15, chlorine_concentration=50.0,
-        acid_flow_rate=0.05)
-    ptab, btab, y = K.tables(20, 4096, f32, dev, bc=policy)
-
-    def rollout_run(name, fn):
-        def run():
-            _build.use({"fused_rollout": rollout_libs[name]})
-            return fn()
-        return run
-    b12 = [(f"B1 MC-4096 x7200 {tag} ({m}x{s or 4})",
-            lambda m=m, s=s: F.rollout_kernel(ptab, btab, *y, dt=DT,
-                                              substeps=m, stages=s,
-                                              n_steps=7200))
-           for tag, (m, s) in (("rk4", (3, None)), ("fast", (1, 4)))]
-    p1, _, y1 = K.tables(20, 1, f32, dev)
-    sched_tab = F.schedule_table(K.bench_schedule(32768), 32768, f32, dev)
-    fast = R.default_rkc_plan(R.ReactorConfiguration(n_zones=20), DT,
-                              mode="fast")
-    b12.append((f"B2 SCHED-1 x32768 fast ({fast[0]}x{fast[1]})",
-                lambda: F.scheduled_kernel(p1, sched_tab, *y1, dt=DT,
-                                           substeps=fast[0],
-                                           stages=fast[1])))
-    for label, fn in b12:
-        ok &= in_turns(label, {name: rollout_run(name, fn)
-                               for name in rollout_libs})
-    _build.use({"fused_rollout": rollout_libs["new"]})
 
     # ---- the wrapper at HIL-3600 -------------------------------------------
     def hil():
