@@ -26,12 +26,15 @@ Phases:
     plain -> kernel -> plain run; a constant schedule equal to constant
     forcing; the kernel's Philox stream against the plain one, with its
     statistics; and the main-path shapes 4096 x 20 and 1 x 20, timed;
- 3c. kernel B4 (the Newton pH solve) against its plain version on the card
-    over kernel_checks.B4_CASES (1, 7, 129, 1025 and 65,536 waters, shapes
-    (4, 6) and (4096, 20), float64 and float32, a batch with degenerate
-    waters whose NaN must sit in the same places); float64 B4 against the
-    step-by-step loop core.chemistry.solve_pH and against the host's
-    scalar solver; and the main-path shape 4096 x 256, timed;
+ 3c. kernel B4 (the Newton pH solve: a lane takes a new element as soon
+    as its own is done) against its plain version on the card over
+    kernel_checks.B4_CASES, bit for bit (1 to 300,000 waters, 2-D shapes,
+    float64 and float32, degenerate waters whose NaN must sit in the same
+    places, iters 0, 1, 7 and 2049, tolerance 0 and 1e30, never-done
+    elements packed into one warp or one in every 32); launches back to
+    back and on two streams at once; float64 B4 against the step-by-step
+    loop core.chemistry.solve_pH and against the host's scalar solver; and
+    the main-path shape 4096 x 256, timed;
  4. the bare-physics main path at full size: 4096 parameter-randomized
     20-zone plants, 7200 one-second steps, RK4 (3 substeps) and RKC-fast
     (1 x 4 stages), make_monte_carlo_batch -> rollout_fused (kernel B1) ->
@@ -49,7 +52,9 @@ Phases:
  5c. the equilibrium-pH main path through solve_pH_auto and
     pH_after_alkalinity_shift (kernel B4): PH-EQ-65536, 65,536 waters in
     float32 and float64; PH-TITR-4096x256, a 256-point titration curve
-    (+-1 meq/L) for each of the 4096 Monte-Carlo plants; each beside the
+    (+-1 meq/L) for each of the 4096 Monte-Carlo plants; each with its
+    mean live iterations, its bounds over every iteration and over the
+    live ones, the wrapper and the kernel alone timed in turns, and the
     step-by-step loop on the same CUDA tensors (what the kernel replaces
     on the card; no single PyTorch call computes the solve);
  5d. the object API on the card: run_all_validations and
@@ -88,8 +93,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-FP32_PEAK = 67e12       # H100 SXM, non-tensor FP32 [operation/s]
-HBM_RATE = 3.35e12      # H100 SXM device memory [byte/s]
 DT = 1.0
 CSRC = "ics_wt_physicsengine_torch/csrc"
 TPU_OPS = "ics_wt_physicsengine_tpu/ops"
@@ -175,6 +178,8 @@ def main() -> int:
                                                           SensorStatus)
 
     dev = torch.device("cuda")
+    FP32_PEAK = K.PEAK_OPS[torch.float32]
+    HBM_RATE = K.HBM_RATE
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     layouts = {F.PACKED: "packed", F.WARP: "warp"}
@@ -408,30 +413,39 @@ def main() -> int:
 
     compare_plant()
 
-    def ph_bound(n_elements, dtype):
-        """``(bound_ms, bound_by)`` of one B4 launch on ``n_elements``."""
-        ops_ms = PS.ph_ops(n_elements) / FP32_PEAK * 1e3
-        bytes_ms = PS.ph_bytes(
-            n_elements, torch.empty((), dtype=dtype).element_size()) \
-            / HBM_RATE * 1e3
-        return max(ops_ms, bytes_ms), \
-            "operations" if ops_ms >= bytes_ms else "bytes"
+    def ph_bound_text(b):
+        """A B4 time's bounds (a time under the live bound fails: the
+        count would be wrong)."""
+        return (f"{b['mean_live']:.3f} live iterations of "
+                f"{PS.DEFAULT_ITERS}; bound {b['live_ms']:.5f} ms over them "
+                f"({b['live_by']}), {b['fixed_ms']:.5f} ms over all "
+                f"({b['fixed_by']})")
 
     # ---- 3c. kernel B4 against its plain version --------------------------
     @phase("B4 vs plain")
     def compare_ph():
         rows = []
         for name, case in K.B4_CASES.items():
-            tol = K.TOL[case["dtype"]]
             got, d = K.b4_vs_plain(case, dev)
             n_nan = int(torch.isnan(got).sum())
             rows.append(dict(case=name, n_nan=n_nan, **d))
-            check(d["max_abs_err"] <= tol and d["nan_equal"]
+            arranged = "arrange" not in case \
+                or K.b4_never_done_in_place(case, dev)
+            check(d["bit_equal"] and d["nan_equal"] and arranged
                   and got.shape == case["shape"]
                   and n_nan == (2 if case.get("degenerate") else 0),
-                  f"B4 {name}: max|kernel-plain| {d['max_abs_err']:.3e} <= "
-                  f"{tol:.0e}; bit-equal: {d['bit_equal']}; NaN positions "
-                  f"equal: {d['nan_equal']} ({n_nan} NaN)")
+                  f"B4 {name}: bit-equal to plain: {d['bit_equal']} "
+                  f"(max|kernel-plain| {d['max_abs_err']:.3e}); NaN "
+                  f"positions equal: {d['nan_equal']} ({n_nan} NaN); live "
+                  f"iterations mean {d['mean_live']:.3f}, max "
+                  f"{d['max_live']}" + ("" if "arrange" not in case else
+                                        f"; never-done in place: {arranged}"))
+        d = K.b4_streams(dev)
+        rows.append(dict(case="streams", **d))
+        check(all(d.values()), "B4 at 4096x256 twice back to back on one "
+              f"stream: bit-equal {d['back_to_back']}; on two streams at "
+              f"once, twice: bit-equal {d['two_streams']}; work counters "
+              f"back at zero: {d['counters_zero']}")
         err = K.b4_vs_loop(dev)
         rows.append(dict(case="float64 vs step-by-step loop, 1025",
                          max_abs_err=err))
@@ -445,25 +459,24 @@ def main() -> int:
         report["compare_b4"] = rows
 
         # main-path shape, float32, timed: the kernels line
-        k, shifts = K.titration_waters(4096, 256, f32, dev)
-        shifted = dataclasses.replace(k, alk_eq=k.alk_eq + shifts)
-        args, _ = PS.broadcast_inputs(shifted, PS.solve_pH_plain(k, 7.0))
+        args = K.ph_cell_args("PH-TITR-4096x256", f32, dev)
         PS.ph_kernel(*args)                                 # warm-up
         ms, got = timed(lambda: PS.ph_kernel(*args), reps=10)
         plain_ms, ref = timed(lambda: PS.ph_plain(*args))
         d = K.ph_diff(got, ref)
-        bound, bound_by = ph_bound(args[0].numel(), f32)
-        check(d["max_abs_err"] <= K.TOL[f32] and d["nan_equal"],
-              f"B4 float32 4096x256 (titration inputs): max|kernel-plain| "
-              f"{d['max_abs_err']:.3e}, bit-equal: {d['bit_equal']}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
-              f"({bound_by})")
-        report["b4_main_shape"] = dict(ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound, bound_by=bound_by,
-                                       **d)
+        _, live = PS.ph_live_iters(*args)
+        b = K.ph_bounds(args, live)
+        g = PS.kernel_geometry(args[0].numel(), dev, False)
+        check(d["bit_equal"] and d["nan_equal"] and ms >= b["live_ms"],
+              f"B4 float32 4096x256 (titration inputs): bit-equal to plain: "
+              f"{d['bit_equal']}; kernel {ms:.4f} ms, plain {plain_ms:.1f} "
+              f"ms; {ph_bound_text(b)}; {g.blocks} blocks of {g.threads} "
+              "threads")
+        report["b4_main_shape"] = dict(ms=ms, plain_ms=plain_ms, **b, **d,
+                                       blocks=g.blocks, threads=g.threads)
         kernels["solve_pH_kernel"].update(
             max_abs_err=d["max_abs_err"], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=bound_by)
+            bound_ms=b["live_ms"], bound_by=b["live_by"])
         return True
 
     compare_ph()
@@ -780,15 +793,21 @@ def main() -> int:
         name = "solve_pH_kernel"
         out = {}
 
-        def alone(constants, guess, dtype):
-            """Kernel B4 alone and the step-by-step loop on the same CUDA
-            tensors, outside the launch-count windows: ``(kernel ms, loop
-            ms, bound ms, bound by)``."""
+        def alone(constants, guess, wrapper, reps):
+            """Outside the launch-count windows: the wrapper and kernel B4
+            alone in turns (wrapper, kernel, kernel, wrapper; ``reps``
+            calls a turn), the live iterations and bounds, and the
+            step-by-step loop on the same CUDA tensors."""
             args, _ = PS.broadcast_inputs(constants, guess)
-            kernel_ms, _ = timed(lambda: PS.ph_kernel(*args), reps=10)
+            runs = {"wrapper": wrapper, "kernel": lambda: PS.ph_kernel(*args)}
+            times = {"wrapper": [], "kernel": []}
+            for turn in ("wrapper", "kernel", "kernel", "wrapper"):
+                times[turn].append(timed(runs[turn], reps=reps)[0])
             loop_ms, _ = timed(lambda: chem.solve_pH(constants, guess))
-            bound, bound_by = ph_bound(args[0].numel(), dtype)
-            return kernel_ms, loop_ms, bound, bound_by
+            _, live = PS.ph_live_iters(*args)
+            return dict(wrapper_ms=sum(times["wrapper"]) / 2,
+                        kernel_ms=sum(times["kernel"]) / 2,
+                        loop_ms=loop_ms, **K.ph_bounds(args, live))
 
         # PH-EQ-65536: one batch of waters, both working types
         n = 65536
@@ -797,20 +816,23 @@ def main() -> int:
             tag = str(dtype)[6:]
             k = K.ph_waters((n,), dtype, dev)
             ph0 = torch.full((n,), 7.0, dtype=dtype, device=dev)
-            ms, ph = on_main_path(name, lambda: PS.solve_pH_auto(k, ph0), 10)
-            kernel_ms, loop_ms, bound, bound_by = alone(k, ph0, dtype)
+
+            def run():
+                return PS.solve_pH_auto(k, ph0)
+            ms, ph = on_main_path(name, run, 10)
+            a = alone(k, ph0, run, 20)
             results[dtype] = ph
             out[f"PH-EQ-65536_{tag}"] = dict(
-                waters=n, iters=PS.DEFAULT_ITERS, wrapper_ms=ms,
-                kernel_ms=kernel_ms, loop_ms=loop_ms, bound_ms=bound,
-                bound_by=bound_by, solves_per_s=n / (ms / 1e3),
+                waters=n, iters=PS.DEFAULT_ITERS, main_path_ms=ms, **a,
+                solves_per_s=n / (a["wrapper_ms"] / 1e3),
                 pH_min=float(ph.min()), pH_max=float(ph.max()))
             check(bool(torch.isfinite(ph).all()) and ph.shape == (n,)
-                  and bool(((ph > 0.0) & (ph < 14.0)).all()),
-                  f"PH-EQ-65536 {tag}: {n / (ms / 1e3):.4e} solves/s; "
-                  f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, bound "
-                  f"{bound:.5f} ms ({bound_by}; float32 peak); the "
-                  f"step-by-step loop it replaces {loop_ms:.1f} ms; pH "
+                  and bool(((ph > 0.0) & (ph < 14.0)).all())
+                  and a["kernel_ms"] >= a["live_ms"],
+                  f"PH-EQ-65536 {tag}: {n / (a['wrapper_ms'] / 1e3):.4e} "
+                  f"solves/s; in turns wrapper {a['wrapper_ms']:.4f} ms, "
+                  f"kernel {a['kernel_ms']:.4f} ms; {ph_bound_text(a)}; the "
+                  f"step-by-step loop it replaces {a['loop_ms']:.1f} ms; pH "
                   f"{float(ph.min()):.3f}..{float(ph.max()):.3f}")
         gap = (results[f32].double() - results[torch.float64]).abs()
         share = float((gap < 1e-5).double().mean())
@@ -830,22 +852,22 @@ def main() -> int:
                 return chem.pH_after_alkalinity_shift(k, shifts, base)
             ms, curve = on_main_path(name, run, 5)
             shifted = dataclasses.replace(k, alk_eq=k.alk_eq + shifts)
-            kernel_ms, loop_ms, bound, bound_by = alone(shifted, base, dtype)
+            a = alone(shifted, base, run, 5)
             verdict = K.titration_check(k, shifts, curve)
             n = curve.numel()
             out[f"PH-TITR-4096x256_{tag}"] = dict(
-                solves=n, iters=PS.DEFAULT_ITERS, wrapper_ms=ms,
-                kernel_ms=kernel_ms, loop_ms=loop_ms, bound_ms=bound,
-                bound_by=bound_by, solves_per_s=n / (ms / 1e3), **verdict)
+                solves=n, iters=PS.DEFAULT_ITERS, main_path_ms=ms, **a,
+                solves_per_s=n / (a["wrapper_ms"] / 1e3), **verdict)
             check(curve.shape == (4096, 256) and verdict["finite"]
                   and verdict["in_range"] and verdict["rising"]
-                  and verdict["enough"],
-                  f"PH-TITR-4096x256 {tag}: {n / (ms / 1e3):.4e} solves/s; "
-                  f"wrapper {ms:.4f} ms, kernel {kernel_ms:.4f} ms, bound "
-                  f"{bound:.5f} ms ({bound_by}; float32 peak); the "
-                  f"step-by-step loop it replaces {loop_ms:.1f} ms; charge "
-                  f"balance closed for {verdict['closed_share']:.4f} of the "
-                  f"solves; curves rise with the shift on all "
+                  and verdict["enough"] and a["kernel_ms"] >= a["live_ms"],
+                  f"PH-TITR-4096x256 {tag}: "
+                  f"{n / (a['wrapper_ms'] / 1e3):.4e} solves/s; in turns "
+                  f"wrapper {a['wrapper_ms']:.4f} ms, kernel "
+                  f"{a['kernel_ms']:.4f} ms; {ph_bound_text(a)}; the "
+                  f"step-by-step loop it replaces {a['loop_ms']:.1f} ms; "
+                  f"charge balance closed for {verdict['closed_share']:.4f} "
+                  f"of the solves; curves rise with the shift on all "
                   f"{verdict['pair_share']:.4f} of neighbour pairs closed "
                   f"below pH {K.TITRATION_PH_TOP} (least step "
                   f"{verdict['min_step']:.2e})")

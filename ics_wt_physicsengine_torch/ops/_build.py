@@ -29,7 +29,8 @@ BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIBRARIES = {"fused_rollout": "fused_rollout.cu",
              "fused_plant": "fused_plant.cu",
              "ph_solver": "ph_solver.cu"}
-HEADERS = ("fused_rollout.cuh", "philox.cuh", "sensors.cuh")
+HEADERS = ("fused_rollout.cuh", "philox.cuh", "sensors.cuh",
+           "ph_newton.cuh")
 # -fmad=false: no contraction of a multiply and an add into one FMA, so the
 # kernels round every operation as the plain PyTorch versions (one kernel
 # per operation) do. The reactor's stratification switch (Ri > 0.25) turns
@@ -142,8 +143,11 @@ def bind(name: str, path: Path):
     elif name == "ph_solver":
         lib.wt_solve_ph.argtypes = (
             [i32] + [ptr] * 8                   # type, 7 inputs, output
-            + [ctypes.c_longlong, i32, f64, ptr])   # n, iters, tol, stream
+            + [ctypes.c_longlong, i32, f64]     # n, iters, tolerance
+            + [i32, i32, ptr, ptr])             # grid, work, stream
         lib.wt_solve_ph.restype = i32
+        lib.wt_ph_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.wt_ph_blocks_per_sm.restype = i32
         lib.wt_ph_error_string.argtypes = [i32]
         lib.wt_ph_error_string.restype = ctypes.c_char_p
     else:

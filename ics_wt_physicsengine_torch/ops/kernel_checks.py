@@ -25,9 +25,9 @@ B4 (the Newton pH solve) tests ``|delta| < tolerance`` every iteration, and
 in float32 the default tolerance lies below the resolution of pH near the
 root, so one differently rounded operation would move a non-converged
 element by up to the decayed step cap (~1e-2). Kernel and plain version do
-the same operations in the same order on the same ``exp``, so they are
-expected to agree bit for bit and are held to ``TOL``, with NaN in the same
-places.
+the same operations in the same order on the same ``exp``, whatever
+element a lane takes when, so they must agree bit for bit, with NaN in the
+same places.
 """
 
 from __future__ import annotations
@@ -430,20 +430,36 @@ PHILOX_BOUNDS = dict(uniform_mean=(0.5, 1.4e-3),
 # Kernel B4: the Newton pH solve
 # ---------------------------------------------------------------------------
 
-# Element counts around the block size of 256 (1, 7, 129, 1025), the
-# 65,536-water batch, a small and a plants-by-zones 2-D shape, both working
-# types, and a batch with three degenerate waters.
+# Element counts around a warp (1, 7, 31, 33), around the block size of
+# 256 (129, 1025), the 65,536-water batch and one more, a batch above the
+# card's resident lanes (300,000: the lanes take new elements from the
+# launch's counter), a small and a plants-by-zones 2-D shape; a batch with
+# three degenerate waters; ``iters`` 0, 1, 7 and one above the cap table
+# in shared memory (2049, every element through all of them);
+# ``tolerance`` 0 (no element is done early) and 1e30 (every element done
+# after one iteration); and titration solves
+# whose never-done elements fill one run of 32 (``arrange="packed"``) or
+# sit at every 32nd element (``"strided"``). Both working types.
 B4_CASES = {
-    f"{name}-{str(dtype)[6:]}": dict(shape=shape, dtype=dtype)
+    f"{name}-{str(dtype)[6:]}": dict(shape=shape, dtype=dtype, **extra)
     for dtype in (torch.float64, torch.float32)
-    for name, shape in (("n1", (1,)), ("n7", (7,)), ("n129", (129,)),
-                        ("n1025", (1025,)), ("n65536", (65536,)),
-                        ("4x6", (4, 6)), ("4096x20", (4096, 20)))
+    for name, shape, extra in (
+        ("n1", (1,), {}), ("n7", (7,), {}), ("n31", (31,), {}),
+        ("n33", (33,), {}), ("n129", (129,), {}), ("n1025", (1025,), {}),
+        ("n65536", (65536,), {}), ("n65537", (65537,), {}),
+        ("n300000", (300000,), {}), ("4x6", (4, 6), {}),
+        ("4096x20", (4096, 20), {}),
+        ("degenerate", (300,), dict(degenerate=True)),
+        ("iters0", (1025,), dict(iters=0)),
+        ("iters1", (1025,), dict(iters=1)),
+        ("iters7", (1025,), dict(iters=7)),
+        ("tolerance0", (1025,), dict(tolerance=0.0)),
+        ("tolerance1e30", (1025,), dict(tolerance=1e30)),
+        ("never-done-packed", (1024,), dict(arrange="packed")),
+        ("never-done-strided", (2048,), dict(arrange="strided")))
 }
-B4_CASES.update({
-    f"degenerate-{str(dtype)[6:]}": dict(shape=(300,), dtype=dtype,
-                                         degenerate=True)
-    for dtype in (torch.float64, torch.float32)})
+B4_CASES["iters2049-float64"] = dict(shape=(40,), dtype=torch.float64,
+                                     iters=2049, tolerance=0.0)
 PH_LOOP_TOL = 2e-6      # kernel's exp form against the loop's 10 ** (-pH)
 
 
@@ -486,17 +502,85 @@ def ph_diff(a: torch.Tensor, b: torch.Tensor) -> dict:
                                       torch.where(nan_b, 0.0, b)))
 
 
-def b4_vs_plain(case: dict, device, guess: float = 7.0):
-    """Kernel B4 and its plain version on one ``B4_CASES`` entry, both on
-    the card; returns the kernel's pH and ``ph_diff`` of the two."""
+def _never_done_arranged(arrange: str, n: int, dtype, device):
+    """Flat B4 inputs of ``n`` titration solves (Monte-Carlo waters at
+    +-1 meq/L, guess the unshifted pH): the never-done elements in run 5
+    (``"packed"``: elements 160-191, all 32) or at every 32nd element
+    (``"strided"``), done elements everywhere else."""
+    k, shifts = titration_waters(64, 64, dtype, device)
+    base = PS.solve_pH_plain(k, 7.0)
+    pool, _ = PS.broadcast_inputs(
+        dataclasses.replace(k, alk_eq=k.alk_eq + shifts), base)
+    _, live = PS.ph_live_iters(*pool)
+    never = torch.nonzero(live == PS.DEFAULT_ITERS).flatten()
+    done = torch.nonzero(live < PS.DEFAULT_ITERS).flatten()
+    slots = torch.arange(n, device=device)
+    where = (slots // 32 == 5) if arrange == "packed" else (slots % 32 == 0)
+    order = torch.empty(n, dtype=torch.int64, device=device)
+    order[where] = never[:int(where.sum())]
+    order[~where] = done[:int((~where).sum())]
+    return [x[order] for x in pool], where
+
+
+def b4_case_inputs(case: dict, device, guess: float = 7.0):
+    """``(flat inputs, shape, solve keywords)`` of one ``B4_CASES``
+    entry."""
+    kw = {key: case[key] for key in ("iters", "tolerance") if key in case}
+    if "arrange" in case:
+        args, _ = _never_done_arranged(case["arrange"], case["shape"][0],
+                                       case["dtype"], device)
+        return args, case["shape"], kw
     k = ph_waters(case["shape"], case["dtype"], device,
                   degenerate=case.get("degenerate", False))
     ph0 = torch.full(case["shape"], guess, dtype=case["dtype"],
                      device=device)
     args, shape = PS.broadcast_inputs(k, ph0)
-    got = PS.ph_kernel(*args).reshape(shape)
+    return args, shape, kw
+
+
+def b4_vs_plain(case: dict, device, guess: float = 7.0):
+    """Kernel B4 and its plain version on one ``B4_CASES`` entry, both on
+    the card; returns the kernel's pH and ``ph_diff`` of the two, with the
+    case's live iterations (``mean_live``, ``max_live``)."""
+    args, shape, kw = b4_case_inputs(case, device, guess)
+    got = PS.ph_kernel(*args, **kw).reshape(shape)
     torch.cuda.synchronize()
-    return got, ph_diff(got, PS.ph_plain(*args).reshape(shape))
+    ref, live = PS.ph_live_iters(*args, **kw)
+    d = ph_diff(got, ref.reshape(shape))
+    d.update(mean_live=float(live.double().mean()),
+             max_live=int(live.max()))
+    return got, d
+
+
+def b4_never_done_in_place(case: dict, device) -> bool:
+    """Whether the never-done elements of an ``arrange`` case sit where the
+    case puts them (and only there)."""
+    args, where = _never_done_arranged(case["arrange"], case["shape"][0],
+                                       case["dtype"], device)
+    _, live = PS.ph_live_iters(*args)
+    return torch.equal(live == PS.DEFAULT_ITERS, where)
+
+
+def b4_streams(device) -> dict:
+    """B4 twice back to back on one stream, then once on each of two
+    streams at once, twice, at PH-TITR's shape (more elements than
+    resident lanes, so the warps draw runs from the launch's counter):
+    whether every result is bit-equal to the plain version, and whether
+    every work counter is back at zero."""
+    args = ph_cell_args("PH-TITR-4096x256", torch.float32, device)
+    ref = PS.ph_plain(*args)
+    got = [PS.ph_kernel(*args), PS.ph_kernel(*args)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(device) for _ in range(2)]
+    for _ in range(2):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                got.append(PS.ph_kernel(*args))
+    torch.cuda.synchronize()
+    equal = [ph_diff(x, ref)["bit_equal"] for x in got]
+    return dict(back_to_back=all(equal[:2]), two_streams=all(equal[2:]),
+                counters_zero=all(int(w.abs().sum()) == 0
+                                  for w in PS._WORK.values()))
 
 
 def b4_vs_loop(device, n: int = 1025) -> float:
@@ -534,6 +618,56 @@ TITRATION_PH_TOP = 9.5
 # 4096 x 256).
 TITRATION_MIN_CLOSED = 0.93
 TITRATION_MIN_PAIRS = 0.6
+
+
+# Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): non-tensor
+# operations a second by type (FP64 is 132 SMs x 64 lanes x 2 x 1.98 GHz;
+# the sheet rounds it to 34 TFLOP/s) and device memory bytes a second.
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+HBM_RATE = 3.35e12
+
+
+def ph_bounds(args, live, iters: int = PS.DEFAULT_ITERS) -> dict:
+    """B4's least times on one launch over ``args`` (flat inputs), in ms:
+    ``fixed_ms`` counts every element through all ``iters`` (the lockstep
+    kernel's work, the bound of PRs 3-5), ``live_ms`` the live iterations
+    ``live`` (``ph_live_iters``): the work no schedule can skip, and the
+    bound a kernel that stops done elements is held to. Each is the larger
+    of the operations over the type's peak and the bytes over the memory
+    rate (``*_by`` says which)."""
+    n, dtype = args[0].numel(), args[0].dtype
+    size = args[0].element_size()
+
+    def bound(ops, moved):
+        ops_ms = ops / PEAK_OPS[dtype] * 1e3
+        bytes_ms = moved / HBM_RATE * 1e3
+        return max(ops_ms, bytes_ms), \
+            "operations" if ops_ms >= bytes_ms else "bytes"
+
+    fixed_ms, fixed_by = bound(PS.ph_ops(n, iters),
+                               PS.ph_bytes(n, size, iters))
+    live_ms, live_by = bound(PS.ph_live_ops(live),
+                             PS.ph_bytes(n, size, int(live.max())))
+    return dict(fixed_ms=fixed_ms, fixed_by=fixed_by, live_ms=live_ms,
+                live_by=live_by, mean_live=float(live.double().mean()))
+
+
+PH_CELLS = ("PH-EQ-65536", "PH-TITR-4096x256")
+
+
+def ph_cell_args(cell: str, dtype, device):
+    """Flat B4 inputs of a main-path pH cell: ``"PH-EQ-65536"``, 65,536
+    waters (``ph_waters``) from pH 7; ``"PH-TITR-4096x256"``, the
+    Monte-Carlo plants' chemistry at 256 alkalinity shifts of +-1 meq/L
+    (``titration_waters``), each from its plant's unshifted pH."""
+    if cell == "PH-EQ-65536":
+        k = ph_waters((65536,), dtype, device)
+        return PS.broadcast_inputs(k, torch.full((65536,), 7.0, dtype=dtype,
+                                                 device=device))[0]
+    k, shifts = titration_waters(4096, 256, dtype, device)
+    base = PS.solve_pH_plain(k, 7.0)
+    return PS.broadcast_inputs(
+        dataclasses.replace(k, alk_eq=k.alk_eq + shifts), base)[0]
 
 
 def titration_waters(n_plants: int, n_shifts: int, dtype, device,

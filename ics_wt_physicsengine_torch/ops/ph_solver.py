@@ -5,16 +5,22 @@ their wrappers (port of ``ics_wt_physicsengine_tpu/ops/ph_solver.py``).
 Kernel (``csrc/ph_solver.cu``, CUDA C++ for sm_90a, bound with ctypes):
 B4 ``wt_solve_ph`` replaces ``_ph_newton_kernel``
 (ics_wt_physicsengine_tpu/ops/ph_solver.py:55). For every element of an
-array of any shape it runs ``iters`` iterations of damped Newton-Raphson on
-the carbonate charge balance in one launch, one thread per element, the
-whole loop on registers. Converged elements keep their pH; every element
-runs all iterations, as in the TPU kernel.
+array of any shape it runs up to ``iters`` iterations of damped
+Newton-Raphson on the carbonate charge balance in one launch. A lane
+takes a new element as soon as its own is done (converged, or ``iters``
+reached), so the card does only the iterations that change a result; the
+TPU kernel runs every element through all ``iters`` in lockstep and
+freezes the done ones. The launch geometry is the host's
+(``ph_geometry``, ``kernel_geometry``); where the elements outnumber the
+grid's lanes, warps draw further runs of 32 elements from a counter that
+belongs to the launch (one per stream, left at zero by each launch).
 
-What bounds it on an H100: operations. An element does ``PH_OPS``
-operations per iteration on 7 values moved once, so the least time is
-``ph_ops(...) / 67 TFLOP/s`` (non-tensor FP32), far above
-``ph_bytes(...) / 3.35 TB/s``. A kernel that stopped a converged element or
-warp early would have to count the iterations to convergence instead.
+What bounds it on an H100: the live iterations (``ph_live_iters``: each
+element's iterations up to and including the one that meets the
+tolerance). Over those, its operations (``ph_live_ops`` over the
+non-tensor peak of the working type) and its bytes (``ph_bytes``) weigh
+about alike. ``ph_ops`` counts all ``iters`` for every element, the bound
+of the lockstep kernel.
 
 The step cap of iteration ``i`` is ``MAX_NEWTON_STEP * NEWTON_STEP_DECAY **
 i`` folded in double on the host and cast to the working type, one table of
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import functools
 import warnings
+from dataclasses import dataclass
 
 import torch
 
@@ -55,11 +62,13 @@ DEFAULT_ITERS = MAX_ITERATIONS
 LAUNCHES = {"solve_pH_kernel": 0}
 
 # Operations per element per iteration, counted from
-# csrc/ph_solver.cu::ph_newton_kernel as written (each add, subtract,
-# multiply, divide, exp, abs, compare and select counts one; a negation is
-# an operand modifier and counts nothing): h 2, oh 1, d 5, a1 2, a2 2, f 7,
-# dh 1, doh 3, dd 2, da1 5, da2 4, df 8, Newton step 1, its clip 2, update
-# and clip 3, done test 2, selection 1, mask update 1. Counted as written:
+# csrc/ph_newton.cuh::newton_delta and its caller as written (each add,
+# subtract, multiply, divide, exp, abs, compare and select counts one; a
+# negation is an operand modifier and counts nothing): h 2, oh 1, d 5,
+# a1 2, a2 2, f 7, dh 1, doh 3, dd 2, da1 5, da2 4, df 8, Newton step 1,
+# its clip 2, update and clip 3, done test 2, selection 1, mask update 1
+# (the last two are the lockstep kernel's; the redesigned one spends them
+# on its iteration count and loop test instead). Counted as written:
 # ``ka1 * ka2`` (three times, loop-invariant), ``d * d`` and ``h * h``
 # (twice each) are counted each time, 5 operations a compiler may share;
 # against that, the 7 divisions and the ``exp`` count one each and cost
@@ -69,8 +78,15 @@ N_ARRAYS = 7        # Kw, Ka1, Ka2, C_T, alk, pH0 in; pH out
 
 
 def ph_ops(n_elements: int, iters: int = DEFAULT_ITERS) -> int:
-    """Operations a solve of these sizes does (see ``PH_OPS``)."""
+    """Operations a solve of these sizes does when every element runs all
+    ``iters`` iterations, as the TPU kernel does (see ``PH_OPS``)."""
     return n_elements * iters * PH_OPS
+
+
+def ph_live_ops(live: torch.Tensor) -> int:
+    """Operations of the live iterations ``live`` (``ph_live_iters``): the
+    work a solve cannot skip."""
+    return int(live.sum()) * PH_OPS
 
 
 def ph_bytes(n_elements: int, element_size: int,
@@ -134,16 +150,16 @@ def broadcast_inputs(constants: ChemistryConstants, initial_guess):
 # ---------------------------------------------------------------------------
 
 
-def ph_plain(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
-             tolerance: float = PH_TOLERANCE) -> torch.Tensor:
-    """The kernel's arithmetic, operation for operation, on tensors of one
-    shape (any device): ``exp(-ln10 pH)`` for the hydrogen ion, the cap
-    table of ``step_caps``, a boolean done-mask."""
+def _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, count):
+    """``(pH, live iterations or None)``: the kernel's arithmetic,
+    operation for operation (csrc/ph_newton.cuh::newton_delta and the
+    update after it)."""
     caps = _cap_table(iters, ph0.dtype, ph0.device)
     tol = torch.tensor(tolerance, dtype=torch.float64).to(ph0.dtype).to(
         ph0.device)
     ph = ph0
     done = torch.zeros_like(ph, dtype=torch.bool)
+    live = torch.zeros_like(ph, dtype=torch.int64) if count else None
     for i in range(iters):
         h = torch.exp(-LN10 * ph)
         oh = kw / h
@@ -164,8 +180,28 @@ def ph_plain(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
         delta = torch.clamp(-f / df, min=-cap, max=cap)
         ph_new = torch.clamp(ph + delta, min=0.0, max=14.0)
         ph = torch.where(done, ph, ph_new)
+        if count:
+            live = live + (~done).to(torch.int64)
         done = done | (torch.abs(delta) < tol)
-    return ph
+    return ph, live
+
+
+def ph_plain(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
+             tolerance: float = PH_TOLERANCE) -> torch.Tensor:
+    """The kernel's arithmetic, operation for operation, on tensors of one
+    shape (any device): ``exp(-ln10 pH)`` for the hydrogen ion, the cap
+    table of ``step_caps``, a boolean done-mask."""
+    return _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, False)[0]
+
+
+def ph_live_iters(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
+                  tolerance: float = PH_TOLERANCE):
+    """``(pH, live)``: ``ph_plain``'s pH, bit for bit, and each element's
+    live iterations as int64: the iterations up to and including the one
+    whose step met the tolerance, or ``iters`` for an element that never
+    meets it (NaN inputs, ``tolerance=0``, float32 elements stuck below
+    their resolution). Their sum is the work the kernel cannot skip."""
+    return _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, True)
 
 
 def solve_pH_plain(constants: ChemistryConstants, initial_guess,
@@ -180,6 +216,95 @@ def solve_pH_plain(constants: ChemistryConstants, initial_guess,
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
+
+
+# csrc/ph_solver.cu: a warp's lanes, the largest block it takes, and its
+# unit of work (a run of consecutive elements)
+WARP = 32
+PH_THREADS = 256
+# At most this many blocks of PH_THREADS an SM, whatever the occupancy
+# allows (24 warps): more lanes hold more elements at the end of a launch,
+# when each lane finishes its last one and the warps run on with few lanes
+# in use. B4 on an H100 80GB HBM3 at 700 W, in turns over 1-6 blocks an SM
+# (tools/torch_b4_compare.py --sweep, PERF.md): PH-TITR-4096x256 was
+# fastest at 3 and 4 (within 1% of each other) in both types, 7-13%
+# slower at 2 and 6.
+PH_BLOCKS_PER_SM = 3
+
+
+@dataclass(frozen=True)
+class PhGeometry:
+    """B4's launch: ``blocks`` blocks of ``threads`` threads."""
+    blocks: int
+    threads: int
+
+    @property
+    def lanes(self) -> int:
+        return self.blocks * self.threads
+
+
+def ph_geometry(n: int, sm_count: int, blocks_per_sm: int,
+                threads: int = PH_THREADS) -> PhGeometry:
+    """The grid of one B4 launch on ``n`` elements, for a card of
+    ``sm_count`` SMs that holds ``blocks_per_sm`` blocks of ``threads``
+    threads each at once (the occupancy calculator's answer).
+
+    With at least as many elements as resident lanes, every block the card
+    holds, and no more: the lanes stay and take new elements until the work
+    is gone. With fewer, the elements spread over every SM at about one a
+    lane: ``k`` blocks an SM (the fewest that hold ``n``), each as narrow
+    as its share of the elements allows in whole warps, and no more blocks
+    than warps of elements. Every run of 32 elements then has its own warp
+    from the start, and no SM holds twice the warps of another."""
+    if n < 1 or sm_count < 1 or blocks_per_sm < 1 \
+            or not WARP <= threads <= PH_THREADS or threads % WARP:
+        raise ValueError(f"no B4 geometry for n={n}, sm_count={sm_count}, "
+                         f"blocks_per_sm={blocks_per_sm}, threads={threads}")
+    resident = sm_count * blocks_per_sm
+    if n >= resident * threads:
+        return PhGeometry(resident, threads)
+    per_sm = -(-n // sm_count)
+    k = -(-per_sm // threads)
+    blocks = min(sm_count * k, -(-n // WARP))
+    width = -(-n // blocks)
+    return PhGeometry(blocks, -(-width // WARP) * WARP)
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks_per_sm(device_index: int, is_double: bool, threads: int,
+                   iters: int) -> int:
+    with torch.cuda.device(device_index):
+        blocks = _build.load("ph_solver").wt_ph_blocks_per_sm(
+            int(is_double), threads, iters)
+    if blocks < 1:
+        raise RuntimeError(f"solve_pH_kernel: no occupancy for {threads} "
+                           f"threads ({blocks})")
+    return blocks
+
+
+def kernel_geometry(n: int, device: torch.device, is_double: bool,
+                    iters: int = DEFAULT_ITERS) -> PhGeometry:
+    """The grid ``ph_kernel`` launches on ``n`` elements on ``device``:
+    ``ph_geometry`` with the card's SM count and its occupancy, capped at
+    ``PH_BLOCKS_PER_SM``."""
+    return ph_geometry(
+        n, torch.cuda.get_device_properties(device).multi_processor_count,
+        min(PH_BLOCKS_PER_SM,
+            _blocks_per_sm(device.index, is_double, PH_THREADS, iters)))
+
+
+# Per (device, stream): B4's work counter (the next run, the warps
+# finished), zeroed once when made; each launch that draws on it leaves it
+# zero again. A launch on another stream gets its own, so two launches
+# never share one.
+_WORK: dict = {}
+
+
+def _work_counter(device: torch.device, stream) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    if key not in _WORK:
+        _WORK[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _WORK[key]
 
 
 def ph_kernel(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
@@ -205,12 +330,17 @@ def ph_kernel(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
                          "iters >= 0")
 
     lib = _build.load("ph_solver")
-    caps = _cap_table(iters, dtype, ph0.device)
+    device = ph0.device
+    is_double = dtype == torch.float64
+    g = kernel_geometry(ph0.numel(), device, is_double, iters)
+    caps = _cap_table(iters, dtype, device)
+    stream = torch.cuda.current_stream(device)
     out = torch.empty_like(ph0)
     err = lib.wt_solve_ph(
-        int(dtype == torch.float64), *(x.data_ptr() for x in tensors),
-        caps.data_ptr(), out.data_ptr(), ph0.numel(), iters,
-        float(tolerance), torch.cuda.current_stream(ph0.device).cuda_stream)
+        int(is_double), *(x.data_ptr() for x in tensors), caps.data_ptr(),
+        out.data_ptr(), ph0.numel(), iters, float(tolerance), g.blocks,
+        g.threads, _work_counter(device, stream).data_ptr(),
+        stream.cuda_stream)
     if err != 0:
         raise RuntimeError("solve_pH_kernel launch failed: "
                            f"{lib.wt_ph_error_string(err).decode()}")

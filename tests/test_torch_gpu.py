@@ -250,19 +250,80 @@ def test_b3_refuses_a_geometry_it_cannot_run(cuda, geometry, monkeypatch):
 
 @pytest.mark.parametrize("case", sorted(K.B4_CASES))
 def test_b4_matches_plain(cuda, case):
-    """The Newton pH kernel against its plain version: within ``K.TOL``,
-    NaN in the same places (the degenerate waters), result in the guess's
-    shape."""
+    """The Newton pH kernel against its plain version: bit-equal, NaN in
+    the same places (the degenerate waters), result in the guess's shape;
+    each case's live iterations as its options make them."""
     spec = K.B4_CASES[case]
     got, diff = K.b4_vs_plain(spec, cuda)
-    assert diff["nan_equal"], diff
-    assert diff["max_abs_err"] <= K.TOL[spec["dtype"]], diff
+    assert diff["nan_equal"] and diff["bit_equal"], diff
     assert got.shape == spec["shape"] and got.dtype == spec["dtype"]
     if spec.get("degenerate"):
         assert torch.isnan(got[1:3]).all() and torch.isfinite(got[0])
         assert int(torch.isnan(got).sum()) == 2
+    elif "arrange" in spec:
+        assert bool(((got >= 0.0) & (got <= 14.0)).all())
     else:
         assert bool(((got > 0.0) & (got < 14.0)).all())
+    iters = spec.get("iters", PS.DEFAULT_ITERS)
+    if iters == 0:
+        assert torch.equal(got, torch.full_like(got, 7.0))
+    if spec.get("tolerance") == 0.0:
+        assert diff["mean_live"] == iters
+    if spec.get("tolerance") == 1e30:
+        assert diff["max_live"] == 1
+    assert diff["max_live"] <= iters
+
+
+@pytest.mark.parametrize("case", sorted(
+    name for name, spec in K.B4_CASES.items() if "arrange" in spec))
+def test_b4_never_done_cases_are_arranged(cuda, case):
+    """The never-done elements of the arranged cases lie where the cases
+    put them: all in one run of 32, or one at every 32nd element."""
+    assert K.b4_never_done_in_place(K.B4_CASES[case], cuda)
+
+
+def test_b4_back_to_back_and_on_two_streams(cuda):
+    """Launches that draw on the work counter, twice on one stream and at
+    once on two, all bit-equal to the plain version, and every counter left
+    at zero for the next launch."""
+    got = K.b4_streams(cuda)
+    assert got == dict(back_to_back=True, two_streams=True,
+                       counters_zero=True), got
+
+
+def test_b4_geometry_on_this_card(cuda):
+    """The wrapper's geometry on this card: ``PH_BLOCKS_PER_SM`` blocks on
+    every SM (the card holds at least as many) when the elements outnumber
+    those lanes, else one lane an element spread over every SM."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for is_double in (False, True):
+        assert PS._blocks_per_sm(cuda.index or 0, is_double, PS.PH_THREADS,
+                                 PS.DEFAULT_ITERS) >= PS.PH_BLOCKS_PER_SM
+        assert PS.kernel_geometry(1 << 20, cuda, is_double) == \
+            PS.PhGeometry(sms * PS.PH_BLOCKS_PER_SM, PS.PH_THREADS)
+        g = PS.kernel_geometry(65536, cuda, is_double)
+        assert g.blocks >= sms and 65536 <= g.lanes < 65536 + g.blocks * 32
+
+
+@pytest.mark.parametrize("geometry", [
+    PS.PhGeometry(2, 48),       # threads not whole warps
+    PS.PhGeometry(1, 512),      # above 256 threads
+    PS.PhGeometry(0, 64),       # no block
+    PS.PhGeometry(4, 0),        # no thread
+], ids=["ragged-warp", "block-too-large", "no-block", "no-thread"])
+def test_b4_refuses_a_geometry_it_cannot_run(cuda, geometry, monkeypatch):
+    """The kernel returns cudaErrorInvalidValue for a launch it cannot run
+    (the wrapper raises and counts nothing); the wrapper's own geometry
+    for the same inputs runs."""
+    args, _, _ = K.b4_case_inputs(K.B4_CASES["n1025-float32"], cuda)
+    PS.reset_launch_counts()
+    monkeypatch.setattr(PS, "ph_geometry", lambda *a, **kw: geometry)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        PS.ph_kernel(*args)
+    assert PS.LAUNCHES["solve_pH_kernel"] == 0
+    monkeypatch.undo()
+    assert torch.equal(PS.ph_kernel(*args), PS.ph_plain(*args))
+    assert PS.LAUNCHES["solve_pH_kernel"] == 1
 
 
 def test_b4_matches_the_loop_and_the_host_solver(cuda):
