@@ -26,10 +26,17 @@
 //   run is fixed (warp w of block b takes run w * gridDim + b, so the
 //   first runs spread over the SMs); where those do not cover every run,
 //   later runs come from a counter shared by the launch, one atomicAdd by
-//   lane 0 per run. Lanes that are done take the next elements of the
-//   warp's run in the order of their lane (a ballot, their rank by
-//   __popc), so the six loads of a refill touch consecutive addresses.
-//   The warp leaves when no run is left and all its lanes are done.
+//   lane 0 per run. Once refill_at<S>() of its lanes are done, they take
+//   the next elements of the warp's run in the order of their lane (a
+//   ballot, their rank by __popc), so the six loads of a refill touch
+//   consecutive addresses. The warp leaves when no run is left and all
+//   its lanes are done.
+// - The refill rule is the working type's, from measured times
+//   (tools/torch_b4_compare.py --ablate, PERF.md): float32 refills at 8
+//   idle lanes, where the elements that never meet the tolerance are
+//   scattered over the warps; float64 only once all 32 are idle (an exit
+//   per warp), where a warp's elements need similar counts and a refill's
+//   loads cost more than the idle lanes it fills.
 // - The counter (`work`: the next run, the warps finished) belongs to one
 //   launch: the wrapper keeps one pair per stream, zeroed when made, and
 //   the launch's last warp sets it back to zero, so no launch pays for a
@@ -41,8 +48,8 @@
 //   waters, each running all `iters`) then no longer keep a warp each
 //   issuing for one or two lanes.
 // - Each lane carries its own iteration count, so lanes sit at different
-//   iterations: the cap table (up to kSharedCaps entries) is loaded into
-//   shared memory once per block.
+//   iterations and read the cap table through the read-only cache (a copy
+//   in shared memory measured no faster).
 // - The iteration's arithmetic is the plain version's, operation for
 //   operation (-fmad=false, IEEE divisions), so the result is bit-equal to
 //   it, and to the lockstep kernel, whatever the schedule.
@@ -69,26 +76,24 @@ namespace ph {
 
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 256;
-constexpr int kSharedCaps = 2048;   // caps in shared memory up to this many
 constexpr int kCompactAt = 16;      // a warp's turns before it may park
 constexpr int kInputs = 6;          // kw, ka1, ka2, ct, alk, ph
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// Whether the cap table of `iters` entries goes to shared memory.
-__host__ __device__ constexpr bool caps_shared(int iters) {
-  return iters <= kSharedCaps;
+// Idle lanes of a warp at which they take new elements (see above).
+template <typename S>
+__host__ __device__ constexpr int refill_at() {
+  return sizeof(S) == sizeof(double) ? kWarp : 8;
 }
 
 // Dynamic shared memory of a block of `threads`: a parking place for each
-// thread's element (index, inputs and pH, iteration), then the cap table
-// when it is kept there.
+// thread's element (index, inputs and pH, iteration).
 template <typename S>
-__host__ __device__ constexpr size_t shared_bytes(int threads, int iters) {
-  return threads * (sizeof(int64_t) + kInputs * sizeof(S) + sizeof(int)) +
-         (caps_shared(iters) ? iters * sizeof(S) : 0);
+__host__ __device__ constexpr size_t shared_bytes(int threads) {
+  return threads * (sizeof(int64_t) + kInputs * sizeof(S) + sizeof(int));
 }
 
-template <typename S, bool kCapsShared>
+template <typename S>
 __global__ void __launch_bounds__(kMaxThreads)
 ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
                  const S* __restrict__ ka2_in, const S* __restrict__ ct_in,
@@ -99,15 +104,8 @@ ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
   extern __shared__ __align__(8) unsigned char ph_smem[];
   int64_t* const park_idx = reinterpret_cast<int64_t*>(ph_smem);
   S* const park = reinterpret_cast<S*>(park_idx + blockDim.x);
-  S* const caps_s = park + kInputs * blockDim.x;
-  int* const park_i =
-      reinterpret_cast<int*>(caps_s + (kCapsShared ? iters : 0));
+  int* const park_i = reinterpret_cast<int*>(park + kInputs * blockDim.x);
   __shared__ int parked;
-  if (kCapsShared) {
-    for (int k = threadIdx.x; k < iters; k += blockDim.x) {
-      caps_s[k] = caps_in[k];
-    }
-  }
   if (threadIdx.x == 0) parked = 0;
   __syncthreads();
   const int lane = threadIdx.x % kWarp;
@@ -117,6 +115,7 @@ ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
 
   // the warp's run: elements [next, end) not yet handed out; later runs
   // come from the counter only where the first runs do not cover them all
+  // (else `more` ends with the first run)
   const bool dynamic = (n + kWarp - 1) / kWarp > total_warps;
   int64_t next = (static_cast<int64_t>(threadIdx.x / kWarp) * gridDim.x +
                   blockIdx.x) * kWarp;
@@ -132,7 +131,7 @@ ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
   const auto step = [&]() {
     bool converged = false;
     if (i < iters) {
-      const S cap = kCapsShared ? caps_s[i] : __ldg(caps_in + i);
+      const S cap = __ldg(caps_in + i);
       const S delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap,
                                    IeeeDiv());
       ph = nclip(ph + delta, S(0.0), S(14.0));
@@ -148,7 +147,7 @@ ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
     // lanes without an element take the next ones of the run, in order
     bool fresh = false;
     unsigned need = __ballot_sync(kFullMask, !active);
-    while (need != 0u && more) {
+    while (__popc(need) >= refill_at<S>() && more) {
       if (next >= end) {
         unsigned long long run = 0;
         if (dynamic && lane == 0) run = atomicAdd(work, 1ull) + total_warps;
@@ -167,6 +166,7 @@ ph_newton_kernel(const S* __restrict__ kw_in, const S* __restrict__ ka1_in,
       }
       const int64_t wanted = __popc(need);
       next += wanted < avail ? wanted : avail;
+      more = dynamic || next < end;
       need = __ballot_sync(kFullMask, !active);
     }
     if (fresh) {
@@ -233,10 +233,8 @@ int launch(const void* kw, const void* ka1, const void* ka2, const void* ct,
            const void* alk, const void* ph0, const void* caps, void* out,
            int64_t n, int iters, double tolerance, int blocks, int threads,
            unsigned long long* work, cudaStream_t stream) {
-  const auto kernel = caps_shared(iters) ? ph_newton_kernel<S, true>
-                                         : ph_newton_kernel<S, false>;
-  kernel<<<dim3(blocks), dim3(threads), shared_bytes<S>(threads, iters),
-           stream>>>(
+  ph_newton_kernel<S><<<dim3(blocks), dim3(threads), shared_bytes<S>(threads),
+                        stream>>>(
       static_cast<const S*>(kw), static_cast<const S*>(ka1),
       static_cast<const S*>(ka2), static_cast<const S*>(ct),
       static_cast<const S*>(alk), static_cast<const S*>(ph0),
@@ -246,12 +244,10 @@ int launch(const void* kw, const void* ka1, const void* ka2, const void* ct,
 }
 
 template <typename S>
-int blocks_per_sm(int threads, int iters) {
+int blocks_per_sm(int threads) {
   int blocks = 0;
-  const auto kernel = caps_shared(iters) ? ph_newton_kernel<S, true>
-                                         : ph_newton_kernel<S, false>;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, kernel, threads, shared_bytes<S>(threads, iters));
+      &blocks, ph_newton_kernel<S>, threads, shared_bytes<S>(threads));
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -286,11 +282,11 @@ int wt_solve_ph(int is_double, const void* kw, const void* ka1,
                                iters, tolerance, blocks, threads, w, s);
 }
 
-// Blocks of `threads` threads that one SM holds at once for this type and
-// iteration count (the occupancy calculator), or minus a cudaError_t.
-int wt_ph_blocks_per_sm(int is_double, int threads, int iters) {
-  return is_double ? wt::ph::blocks_per_sm<double>(threads, iters)
-                   : wt::ph::blocks_per_sm<float>(threads, iters);
+// Blocks of `threads` threads that one SM holds at once for this type
+// (the occupancy calculator), or minus a cudaError_t.
+int wt_ph_blocks_per_sm(int is_double, int threads) {
+  return is_double ? wt::ph::blocks_per_sm<double>(threads)
+                   : wt::ph::blocks_per_sm<float>(threads);
 }
 
 const char* wt_ph_error_string(int code) {

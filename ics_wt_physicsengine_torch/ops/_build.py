@@ -146,7 +146,7 @@ def bind(name: str, path: Path):
             + [ctypes.c_longlong, i32, f64]     # n, iters, tolerance
             + [i32, i32, ptr, ptr])             # grid, work, stream
         lib.wt_solve_ph.restype = i32
-        lib.wt_ph_blocks_per_sm.argtypes = [i32, i32, i32]
+        lib.wt_ph_blocks_per_sm.argtypes = [i32, i32]
         lib.wt_ph_blocks_per_sm.restype = i32
         lib.wt_ph_error_string.argtypes = [i32]
         lib.wt_ph_error_string.restype = ctypes.c_char_p

@@ -150,16 +150,16 @@ def broadcast_inputs(constants: ChemistryConstants, initial_guess):
 # ---------------------------------------------------------------------------
 
 
-def _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, count):
-    """``(pH, live iterations or None)``: the kernel's arithmetic,
-    operation for operation (csrc/ph_newton.cuh::newton_delta and the
-    update after it)."""
+def ph_plain(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
+             tolerance: float = PH_TOLERANCE) -> torch.Tensor:
+    """The kernel's arithmetic, operation for operation, on tensors of one
+    shape (any device): ``exp(-ln10 pH)`` for the hydrogen ion, the cap
+    table of ``step_caps``, a boolean done-mask."""
     caps = _cap_table(iters, ph0.dtype, ph0.device)
     tol = torch.tensor(tolerance, dtype=torch.float64).to(ph0.dtype).to(
         ph0.device)
     ph = ph0
     done = torch.zeros_like(ph, dtype=torch.bool)
-    live = torch.zeros_like(ph, dtype=torch.int64) if count else None
     for i in range(iters):
         h = torch.exp(-LN10 * ph)
         oh = kw / h
@@ -180,28 +180,48 @@ def _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, count):
         delta = torch.clamp(-f / df, min=-cap, max=cap)
         ph_new = torch.clamp(ph + delta, min=0.0, max=14.0)
         ph = torch.where(done, ph, ph_new)
-        if count:
-            live = live + (~done).to(torch.int64)
         done = done | (torch.abs(delta) < tol)
-    return ph, live
-
-
-def ph_plain(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
-             tolerance: float = PH_TOLERANCE) -> torch.Tensor:
-    """The kernel's arithmetic, operation for operation, on tensors of one
-    shape (any device): ``exp(-ln10 pH)`` for the hydrogen ion, the cap
-    table of ``step_caps``, a boolean done-mask."""
-    return _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, False)[0]
+    return ph
 
 
 def ph_live_iters(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
                   tolerance: float = PH_TOLERANCE):
-    """``(pH, live)``: ``ph_plain``'s pH, bit for bit, and each element's
-    live iterations as int64: the iterations up to and including the one
-    whose step met the tolerance, or ``iters`` for an element that never
-    meets it (NaN inputs, ``tolerance=0``, float32 elements stuck below
-    their resolution). Their sum is the work the kernel cannot skip."""
-    return _newton(kw, ka1, ka2, ct, alk, ph0, iters, tolerance, True)
+    """``(pH, live)``: ``ph_plain``'s iteration with a count beside it, so
+    its pH is ``ph_plain``'s bit for bit (the tests hold it so), and each
+    element's live iterations as int64: the iterations up to and including
+    the one whose step met the tolerance, or ``iters`` for an element that
+    never meets it (NaN inputs, ``tolerance=0``, float32 elements stuck
+    below their resolution). Their sum is the work the kernel cannot
+    skip."""
+    caps = _cap_table(iters, ph0.dtype, ph0.device)
+    tol = torch.tensor(tolerance, dtype=torch.float64).to(ph0.dtype).to(
+        ph0.device)
+    ph = ph0
+    done = torch.zeros_like(ph, dtype=torch.bool)
+    live = torch.zeros_like(ph, dtype=torch.int64)
+    for i in range(iters):
+        h = torch.exp(-LN10 * ph)
+        oh = kw / h
+        d = h * h + ka1 * h + ka1 * ka2
+        a1 = ka1 * h / d
+        a2 = ka1 * ka2 / d
+        f = h - oh + a1 * ct + 2.0 * a2 * ct - alk
+
+        dh_dph = -LN10 * h
+        doh_dph = -(kw / (h * h)) * dh_dph
+        dd_dh = 2.0 * h + ka1
+        da1_dh = ka1 * (d - h * dd_dh) / (d * d)
+        da2_dh = -ka1 * ka2 * dd_dh / (d * d)
+        df = dh_dph - doh_dph + ct * da1_dh * dh_dph \
+            + 2.0 * ct * da2_dh * dh_dph
+
+        cap = caps[i]
+        delta = torch.clamp(-f / df, min=-cap, max=cap)
+        ph_new = torch.clamp(ph + delta, min=0.0, max=14.0)
+        ph = torch.where(done, ph, ph_new)
+        live = live + (~done).to(torch.int64)
+        done = done | (torch.abs(delta) < tol)
+    return ph, live
 
 
 def solve_pH_plain(constants: ChemistryConstants, initial_guess,
@@ -271,26 +291,25 @@ def ph_geometry(n: int, sm_count: int, blocks_per_sm: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _blocks_per_sm(device_index: int, is_double: bool, threads: int,
-                   iters: int) -> int:
+def _blocks_per_sm(device_index: int, is_double: bool, threads: int) -> int:
     with torch.cuda.device(device_index):
         blocks = _build.load("ph_solver").wt_ph_blocks_per_sm(
-            int(is_double), threads, iters)
+            int(is_double), threads)
     if blocks < 1:
         raise RuntimeError(f"solve_pH_kernel: no occupancy for {threads} "
                            f"threads ({blocks})")
     return blocks
 
 
-def kernel_geometry(n: int, device: torch.device, is_double: bool,
-                    iters: int = DEFAULT_ITERS) -> PhGeometry:
+def kernel_geometry(n: int, device: torch.device,
+                    is_double: bool) -> PhGeometry:
     """The grid ``ph_kernel`` launches on ``n`` elements on ``device``:
     ``ph_geometry`` with the card's SM count and its occupancy, capped at
     ``PH_BLOCKS_PER_SM``."""
     return ph_geometry(
         n, torch.cuda.get_device_properties(device).multi_processor_count,
         min(PH_BLOCKS_PER_SM,
-            _blocks_per_sm(device.index, is_double, PH_THREADS, iters)))
+            _blocks_per_sm(device.index, is_double, PH_THREADS)))
 
 
 # Per (device, stream): B4's work counter (the next run, the warps
@@ -332,7 +351,7 @@ def ph_kernel(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
     lib = _build.load("ph_solver")
     device = ph0.device
     is_double = dtype == torch.float64
-    g = kernel_geometry(ph0.numel(), device, is_double, iters)
+    g = kernel_geometry(ph0.numel(), device, is_double)
     caps = _cap_table(iters, dtype, device)
     stream = torch.cuda.current_stream(device)
     out = torch.empty_like(ph0)

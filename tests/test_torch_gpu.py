@@ -297,8 +297,8 @@ def test_b4_geometry_on_this_card(cuda):
     those lanes, else one lane an element spread over every SM."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for is_double in (False, True):
-        assert PS._blocks_per_sm(cuda.index or 0, is_double, PS.PH_THREADS,
-                                 PS.DEFAULT_ITERS) >= PS.PH_BLOCKS_PER_SM
+        assert PS._blocks_per_sm(cuda.index or 0, is_double,
+                                 PS.PH_THREADS) >= PS.PH_BLOCKS_PER_SM
         assert PS.kernel_geometry(1 << 20, cuda, is_double) == \
             PS.PhGeometry(sms * PS.PH_BLOCKS_PER_SM, PS.PH_THREADS)
         g = PS.kernel_geometry(65536, cuda, is_double)

@@ -23,13 +23,11 @@ the old build's and to the plain version's (NaN in the same places), the
 cell's mean live iterations and both bounds (``kernel_checks.ph_bounds``:
 every iteration, and the live ones); a time below the live bound is
 flagged, since it would mean the count is wrong. ``--ablate`` also times
-copies of the current sources with one part of the design taken out, or
-another way put in (string replacements in ``ABLATIONS``): the refill (a
-warp takes a new run only when all its lanes are done: an exit per warp),
-the block's compaction of unfinished elements, a refill only once 8
-lanes are idle, the cap table in shared memory, every float32 division
-without its slow-path branch, and the Newton step's zero operands kept
-off the slow path (both from ``tools/torch_b4_division.cuh``).
+copies of the current sources with one part of the design taken out or
+changed (string replacements in ``ABLATIONS``): the block's compaction of
+unfinished elements, and the refill rule of both types set to each of
+the rules the kernel chooses from (a refill as soon as one lane is idle,
+at 8 idle lanes, or only when all 32 are: an exit per warp).
 ``--sweep`` times the current build over launch geometries: 128 and 256
 threads a block, and 1 to the card's occupancy of blocks an SM.
 
@@ -42,13 +40,10 @@ prints the SASS instruction counts of the shipped kernels.
 
 ``--probe`` builds ``tools/torch_b4_probe.cu`` and runs B4's iteration on
 the same cells, with one lane a warp and with all 32: the cycles of one
-live iteration (median, quartiles) with the kernel's IEEE divisions and
-with branch-free ones and, for each of the seven IEEE divisions, its
-cycles and the share of its calls that take the slow path (more than
-``SLOW_FACTOR`` times the division's median). Its pH and live iterations
-are held against ``ph_live_iters``'s. Then it counts, over random
-float32 pairs, where the branch-free division differs from ``a / b``
-inside the range it vouches for.
+live iteration (median, quartiles) and, for each of the seven IEEE
+divisions, its cycles and the share of its calls that take the slow path
+(more than ``SLOW_FACTOR`` times the division's median). Its pH and live
+iterations are held against ``ph_live_iters``'s.
 
 Prints the card's name and power limit; writes
 chiprun_out/torch_b4_compare.json. Exits non-zero without a CUDA card or
@@ -83,50 +78,21 @@ DIVISIONS = ("kw / h", "ka1 h / d", "ka1 ka2 / d", "kw / h^2",
              "-f / df")
 
 # One part of the design taken out of a copy of the current sources, or
-# another way of dividing put in (tools/torch_b4_division.cuh):
-# {name: [(file, text, replacement), ...]}.
-DIVISION_HEADER = os.path.join(ROOT, "tools", "torch_b4_division.cuh")
-SHIPPED_STEP = (
-    "      const S delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap,\n"
-    "                                   IeeeDiv());")
+# changed: {name: [(file, text, replacement), ...]}.
+SHIPPED_REFILL = "  return sizeof(S) == sizeof(double) ? kWarp : 8;"
 ABLATIONS = {
-    # a warp takes a new run only when all its lanes are done
-    "refill-off": [
-        ("ph_solver.cu", "    while (need != 0u && more) {",
-         "    while (need == kFullMask && more) {"),
-    ],
     # no parking: each warp finishes its own elements
     "compaction-off": [
         ("ph_solver.cu", "constexpr int kCompactAt = 16;",
          "constexpr int kCompactAt = 1 << 30;"),
     ],
-    # a warp refills only once 8 of its lanes are idle
-    "refill-at-8": [
-        ("ph_solver.cu", "    while (need != 0u && more) {",
-         "    while (__popc(need) >= 8 && more) {"),
-    ],
-    # the cap table read from global memory (through the read-only cache)
-    "caps-global": [
-        ("ph_solver.cu", "  return iters <= kSharedCaps;", "  return false;"),
-    ],
-    # every float32 division without its branch to the slow path, the IEEE
-    # division where the fast path cannot vouch for the quotient
-    "division-fast": [
-        ("ph_solver.cu", '#include "ph_newton.cuh"\n',
-         f'#include "ph_newton.cuh"\n#include "{DIVISION_HEADER}"\n'),
-        ("ph_solver.cu", SHIPPED_STEP, """      const FastDiv fast{};
-      S delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, fast);
-      if (!fast.exact) {
-        delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, IeeeDiv());
-      }"""),
-    ],
-    # the Newton step's zero operands kept off the slow path
-    "division-zero-guard": [
-        ("ph_solver.cu", '#include "ph_newton.cuh"\n',
-         f'#include "ph_newton.cuh"\n#include "{DIVISION_HEADER}"\n'),
-        ("ph_solver.cu", SHIPPED_STEP,
-         SHIPPED_STEP.replace("IeeeDiv()", "ZeroDiv()")),
-    ],
+    # both types: a warp takes new elements as soon as one lane is idle
+    "refill-any": [("ph_solver.cu", SHIPPED_REFILL, "  return 1;")],
+    # both types: at 8 idle lanes (float32's rule)
+    "refill-at-8": [("ph_solver.cu", SHIPPED_REFILL, "  return 8;")],
+    # both types: only when all its lanes are done, an exit per warp
+    # (float64's rule)
+    "refill-off": [("ph_solver.cu", SHIPPED_REFILL, "  return kWarp;")],
 }
 
 # The shipped sources with counters in the kernel's loop (``--stats``):
@@ -145,7 +111,7 @@ STATS_EDITS = [
     ("ph_solver.cu", "    unsigned need = __ballot_sync(kFullMask, !active);\n",
      "    const long long st_r0 = clock64();\n"
      "    unsigned need = __ballot_sync(kFullMask, !active);\n"
-     "    st_refills += need != 0u && more;\n"),
+     "    st_refills += __popc(need) >= refill_at<S>() && more;\n"),
     ("ph_solver.cu", "    if (active) step();\n  }\n\n  // Every warp",
      "    st_refill += clock64() - st_r0;\n"
      "    const long long st_c0 = clock64();\n    ++st_iters;\n"
@@ -232,9 +198,6 @@ def build_probe(out_dir: Path):
         ctypes.c_longlong, i32, ctypes.c_double, ptr, ptr, ptr, ptr, ptr,
         i32, i32, ptr]
     probe_lib.wt_b4_probe.restype = i32
-    probe_lib.wt_b4_div_check.argtypes = [ptr, ptr, ctypes.c_longlong, i32,
-                                          ptr, ptr]
-    probe_lib.wt_b4_div_check.restype = i32
     return probe_lib
 
 
@@ -247,13 +210,13 @@ def quantile(hist, width: int, q: float) -> float:
 
 
 # probe modes (tools/torch_b4_probe.cu)
-ITERATION_FAST, DIVISIONS_IEEE, ITERATION_IEEE = 0, 1, 2
+MODE_ITERATION, MODE_DIVISIONS = 0, 1
 
 
 def probe(lib, args, live_ref, ph_ref, dev) -> dict:
     """B4's iteration over ``args`` with one lane a warp and with all 32:
-    cycles of a live iteration with the kernel's divisions and with IEEE
-    ones, and each IEEE division's cycles and slow-path share."""
+    cycles of a live iteration, and each division's cycles and slow-path
+    share."""
     from ics_wt_physicsengine_torch.ops import ph_solver as PS
 
     bins, div_bin, iter_bin = 256, 8, 16
@@ -263,9 +226,8 @@ def probe(lib, args, live_ref, ph_ref, dev) -> dict:
     caps = PS._cap_table(PS.DEFAULT_ITERS, args[0].dtype, dev)
     pointers = (ctypes.c_void_p * 6)(*(x.data_ptr() for x in args))
     out = {"equal_to_plain": True}
-    for mode, all_lanes in ((ITERATION_FAST, 0), (ITERATION_IEEE, 0),
-                            (ITERATION_FAST, 1), (ITERATION_IEEE, 1),
-                            (DIVISIONS_IEEE, 0)):
+    for mode, all_lanes in ((MODE_ITERATION, 0), (MODE_ITERATION, 1),
+                            (MODE_DIVISIONS, 0)):
         div_hist = torch.zeros((7, bins), dtype=torch.int64, device=dev)
         iter_hist = torch.zeros(bins, dtype=torch.int64, device=dev)
         live = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -283,10 +245,9 @@ def probe(lib, args, live_ref, ph_ref, dev) -> dict:
         out["equal_to_plain"] &= torch.equal(live.long(), live_ref) and \
             torch.equal(torch.nan_to_num(ph, 0.0),
                         torch.nan_to_num(ph_ref, 0.0))
-        if mode != DIVISIONS_IEEE:
+        if mode == MODE_ITERATION:
             h = iter_hist.cpu()
-            key = ("fast" if mode == ITERATION_FAST else "ieee") + \
-                ("_32_lanes" if all_lanes else "_1_lane")
+            key = "32_lanes" if all_lanes else "1_lane"
             out[f"iteration_cycles_{key}"] = dict(
                 median=quantile(h, iter_bin, 0.5),
                 p25=quantile(h, iter_bin, 0.25),
@@ -314,43 +275,6 @@ def probe(lib, args, live_ref, ph_ref, dev) -> dict:
     return out
 
 
-def division_check(lib, dev) -> list:
-    """div_fast against a / b on random float32 pairs: how many
-    div_fast_exact vouches for, and how many of those differ."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    n_pairs = 1 << 24
-    rows = []
-
-    def log_uniform(lo, hi):
-        x = 2.0 ** (torch.rand(n_pairs, generator=gen, device=dev,
-                               dtype=torch.float64) * (hi - lo) + lo)
-        sign = torch.randint(0, 2, (n_pairs,), generator=gen, device=dev)
-        return (x * (1 - 2 * sign)).float()
-
-    for label, (a_lo, a_hi, b_lo, b_hi), zeros in (
-            ("kernel range: a 2^-100..2^14, b 2^-66..2^14",
-             (-100, 14, -66, 14), False),
-            ("whole range: a, b 2^-149..2^128", (-149, 128, -149, 128),
-             False),
-            ("zero dividends, b 2^-149..2^128", (-149, 128, -149, 128),
-             True)):
-        a, b = log_uniform(a_lo, a_hi), log_uniform(b_lo, b_hi)
-        if zeros:
-            a = a * 0.0
-        counts = torch.zeros(2, dtype=torch.int64, device=dev)
-        if lib.wt_b4_div_check(a.data_ptr(), b.data_ptr(), n_pairs,
-                               int(zeros), counts.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError("division check launch failed")
-        torch.cuda.synchronize()
-        rows.append(dict(pairs=n_pairs, label=label,
-                         vouched=int(counts[0]), differ=int(counts[1])))
-        print(f"  div_fast against a / b, {n_pairs} pairs, {label}: "
-              f"{int(counts[0])} vouched for, {int(counts[1])} of them "
-              "differ", flush=True)
-    return rows
-
-
 def sweep(PS, K, dev, timed) -> list:
     """The current build over launch geometries, in turns (each geometry,
     then in reverse order), at every cell and type."""
@@ -365,8 +289,7 @@ def sweep(PS, K, dev, timed) -> list:
             configs = []
             for threads in (128, 256):
                 most = PS._blocks_per_sm(dev.index or 0,
-                                         dtype == torch.float64, threads,
-                                         PS.DEFAULT_ITERS)
+                                         dtype == torch.float64, threads)
                 configs += [(b, threads) for b in (1, 2, 3, 4, 6, 8)
                             if b <= most]
             times = {c: [] for c in configs}
@@ -597,7 +520,6 @@ def main() -> int:
             del cell_args, ref, live, results
     if probe_rows:
         report["probe"] = probe_rows
-        report["division_check"] = division_check(probe_lib, dev)
     if args.sweep:
         report["sweep"] = sweep(PS, K, dev, timed)
     if stats_lib is not None:

@@ -7,26 +7,19 @@
 // (`all_lanes` = 0: every stamp times one element alone, no other lane of
 // its warp diverging into a slow path beside it) or all 32 (each lane's
 // own elements, the warp's turn as the kernel sees it). Modes:
-//   0: clock64() around each live iteration with branch-free float32
-//      divisions (torch_b4_division.cuh::FastDiv, IeeeDiv where it
-//      cannot vouch), binned by kIterBin cycles into iter_hist[kBins];
+//   0: clock64() around each live iteration, binned by kIterBin cycles
+//      into iter_hist[kBins];
 //   1: clock64() around each of the iteration's seven IEEE divisions,
 //      from its operands being ready to its quotient being ready, binned
-//      by kDivBin cycles into div_hist[7][kBins];
-//   2: as 0 with the kernel's divisions (IeeeDiv).
+//      by kDivBin cycles into div_hist[7][kBins].
 // A stamp is taken only after the value it closes is ready: a volatile
 // store consumes that value first, and a warp issues in order. Each
 // element's live iterations and final pH go to live_out and ph_out, to be
 // held against the kernel and ops/ph_solver.py::ph_live_iters.
-//
-// wt_b4_div_check counts, over pairs (a, b), those that div_fast_exact
-// vouches for and, among them, those whose div_fast quotient is not the
-// bits of a / b.
 
 #include <cstdint>
 
 #include "ph_newton.cuh"
-#include "torch_b4_division.cuh"
 
 namespace wt {
 namespace ph {
@@ -96,15 +89,7 @@ __global__ void probe_kernel(const S* __restrict__ kw_in,
       } else {
         consume(ph, my_sink);
         const long long t0 = clock64();
-        if (kMode == 0) {
-          const FastDiv fast{};
-          delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, fast);
-          if (!fast.exact) {
-            delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, IeeeDiv());
-          }
-        } else {
-          delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, IeeeDiv());
-        }
+        delta = newton_delta(ph, kw, ka1, ka2, ct, alk, cap, IeeeDiv());
         ph = nclip(ph + delta, S(0.0), S(14.0));
         consume(ph, my_sink);
         const long long t1 = clock64();
@@ -124,9 +109,7 @@ int launch(int mode, int all_lanes, const void* const* in, const void* caps,
            unsigned long long* div_hist, unsigned long long* iter_hist,
            int* live_out, void* ph_out, void* sink, int blocks, int threads,
            cudaStream_t stream) {
-  auto kernel = mode == 0 ? probe_kernel<S, 0>
-                          : (mode == 1 ? probe_kernel<S, 1>
-                                       : probe_kernel<S, 2>);
+  auto kernel = mode == 0 ? probe_kernel<S, 0> : probe_kernel<S, 1>;
   kernel<<<blocks, threads, 0, stream>>>(
       static_cast<const S*>(in[0]), static_cast<const S*>(in[1]),
       static_cast<const S*>(in[2]), static_cast<const S*>(in[3]),
@@ -135,24 +118,6 @@ int launch(int mode, int all_lanes, const void* const* in, const void* caps,
       all_lanes, div_hist, iter_hist, live_out, static_cast<S*>(ph_out),
       static_cast<S*>(sink));
   return static_cast<int>(cudaGetLastError());
-}
-
-// counts[0]: pairs div_fast_exact vouches for; counts[1]: of those, pairs
-// whose div_fast quotient differs from a / b (for a zero dividend, in
-// value: its sign is allowed to differ).
-__global__ void div_check_kernel(const float* __restrict__ a,
-                                 const float* __restrict__ b, int64_t n,
-                                 int signless_zero,
-                                 unsigned long long* counts) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n || !div_fast_exact(a[i], b[i], signless_zero != 0)) return;
-  const float x = a[i] / b[i];
-  const float y = div_fast(a[i], b[i]);
-  atomicAdd(counts, 1ull);
-  const bool same = a[i] == 0.0f ? x == y
-                                 : __float_as_uint(x) == __float_as_uint(y);
-  if (!same) atomicAdd(counts + 1, 1ull);
 }
 
 }  // namespace probe
@@ -179,14 +144,4 @@ extern "C" int wt_b4_probe(int is_double, int mode, int all_lanes,
                                       tolerance, div_hist, iter_hist,
                                       live_out, ph_out, sink, blocks, threads,
                                       s);
-}
-
-extern "C" int wt_b4_div_check(const float* a, const float* b, long long n,
-                               int signless_zero, unsigned long long* counts,
-                               void* stream) {
-  const int threads = 256;
-  wt::ph::probe::div_check_kernel<<<
-      static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
-      static_cast<cudaStream_t>(stream)>>>(a, b, n, signless_zero, counts);
-  return static_cast<int>(cudaGetLastError());
 }
