@@ -64,6 +64,22 @@ Phases:
     cleaning, reagent replacement), and the same loop on the 20-zone plant
     for 600 ticks. This path is per-tick plain PyTorch and launches no
     hand-written kernel;
+ 5e. FULLCHEM-8192, the six extension axes (nitrogen, gas, particles,
+    disinfection, biofilm, phase) on bench.py's bench_full_chemistry
+    configuration (models/plant.py::full_chemistry_config, 22 fields per
+    zone): 8192 Monte-Carlo plants x 20 zones through core.reactor.rollout
+    (RK4 x 3), float32; bench.py's 1000 steps cut to a 10 s window (the cut
+    is printed); plant-steps/s, ms per step, and one step's CUDA kernel
+    launches, device time and aten operations (torch.profiler, outside the
+    window); the fields finite, >= 0 where clipped, temperature inside the
+    phase bounds, outlet pathogens below the inlet's; no B1-B4 launch;
+ 5f. the same configuration at 16 plants x 20 zones x 20 steps in float64
+    on the card and on the CPU: every field within rtol 1e-9 + atol 1e-12;
+ 5g. PLANT-EXT-1, the six-axis plant with its ten instruments
+    (make_plant, 20 zones) through plant_rollout_auto for 600 steps,
+    which takes the plant_step loop: steps/s (host clock) and the share of
+    finite readings per instrument; no B3 launch. Phases 5e-5g are plain
+    PyTorch: no hand-written kernel serves the extension axes;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -71,7 +87,8 @@ Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b and 5c. Direct kernel calls (phases 3, 3b and
-3c, the kernel-only times) and phase 6 lie outside those windows. Exits non-zero,
+3c, the kernel-only times) and phase 6 lie outside those windows; phases
+5d-5g must launch none. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -944,6 +961,165 @@ def main() -> int:
 
     object_api()
 
+    # ---- 5e-5g. the six extension axes (plain PyTorch, no kernel) ---------
+    full_cfg = P.full_chemistry_config(n_zones=20)
+    full_bc = P.full_chemistry_boundary()
+    # the six-axis plant's primary fields: 22 values a zone (tss and
+    # pathogens carry 3 classes each; sludge is per class, not per zone)
+    primary = ("pH", "chlorine", "temperature") \
+        + sum(R.EXTENSION_STATE.values(), ())
+
+    def kernel_counts():
+        return {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
+
+    def reset_kernel_counts():
+        F.reset_launch_counts()
+        FP.reset_launch_counts()
+        PS.reset_launch_counts()
+
+    @phase("path: full-chemistry ensemble")
+    def full_chemistry():
+        n_plants, m = 8192, 3
+        t0 = time.perf_counter()
+        params, state = make_monte_carlo_batch(full_cfg, n_plants, seed=0,
+                                               dtype=f32, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        def run(s, n_steps):
+            return R.rollout(params, s, full_bc, DT, m, n_steps,
+                             record=False)[0]
+
+        # one step profiled, outside the timed window: kernels launched,
+        # their device time, and the aten operations dispatched
+        prof = step_profile(lambda: run(state, 1))
+        # a 2-step warm-up, then 2 steps on the host clock size the timed
+        # window to FULLCHEM_WINDOW_S
+        warm = run(state, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = run(warm, 2)
+        torch.cuda.synchronize()
+        warm_step_s = (time.perf_counter() - t0) / 2
+        n_steps = int(min(1000, max(20, FULLCHEM_WINDOW_S / warm_step_s)))
+        print(f"  FULLCHEM-8192: n_steps cut from bench.py's 1000 to "
+              f"{n_steps} (a {FULLCHEM_WINDOW_S:.0f} s window at "
+              f"{warm_step_s * 1e3:.1f} ms per step after the warm-up)")
+        reset_kernel_counts()
+        ms, final = timed(lambda: run(warm, n_steps))
+        counts = kernel_counts()
+        step_ms = ms / n_steps
+        rate = n_plants * n_steps / (ms / 1e3)
+        fields_ = {f.name: getattr(final, f.name)
+                   for f in dataclasses.fields(final)
+                   if getattr(final, f.name) is not None}
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in fields_.values())
+        # every field the step clips at 0 (all but temperature, time)
+        nonneg = all(bool((x >= 0).all()) for name, x in fields_.items()
+                     if name not in ("temperature", "time"))
+        ph = params.phase
+        t_ok = bool((final.temperature >= ph.t_min[:, None]).all()
+                    & (final.temperature
+                       <= (ph.t_boil + ph.delta_boil)[:, None]).all())
+        outlet = final.pathogens[..., -1]                  # [B, P]
+        uv_ok = bool((outlet < full_bc.inlet_pathogens).all())
+        per_zone = sum(int(np.prod(fields_[n].shape[1:-1]))
+                       for n in primary if n != "sludge")
+        ice = float((final.temperature < 0.0).double().mean())
+        busy = prof["device_ms"]
+        idle = None if busy is None else 1.0 - busy / step_ms
+        report["full_chemistry"] = dict(
+            plants=n_plants, zones=20, fields_per_zone=per_zone,
+            substeps=m, n_steps=n_steps, cut_from=1000, setup_s=setup_s,
+            warm_step_ms=warm_step_s * 1e3, window_ms=ms, ms_per_step=step_ms,
+            plant_steps_per_s=rate, launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"],
+            device_ms_per_step=busy, device_idle_share=idle,
+            profiled_step_wall_ms=prof["wall_ms"],
+            peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            share_of_zones_below_0C=ice,
+            outlet_pathogens_max=float(outlet.max()),
+            kernel_launches=counts)
+        check(finite and nonneg and t_ok and uv_ok
+              and set(primary) <= set(fields_) and per_zone == 22
+              and final.tss.shape == (n_plants, 3, 20),
+              f"FULLCHEM-8192 (8192 plants x 20 zones x {per_zone} fields, "
+              f"RK4 x{m}"
+              f", {n_steps} steps): {rate:.4e} plant-steps/s, "
+              f"{step_ms:.2f} ms per step; one step launches "
+              f"{prof['launches']} CUDA kernels ({prof['aten_ops']} aten "
+              f"ops), {fmt(busy, '.2f')} ms of device time "
+              f"(idle share {fmt(idle, '.3f')}); all 22 fields finite, "
+              f">= 0 where clipped, T in the phase bounds, outlet pathogens "
+              f"max {float(outlet.max()):.1f} < inlet 1e4 org/L; "
+              f"{ice:.3f} of zones below 0 C")
+        check(not any(counts.values()),
+              f"FULLCHEM-8192: no B1-B4 launch in the window ({counts})")
+        return True
+
+    full_chemistry()
+
+    @phase("path: full-chemistry on the card vs the CPU")
+    def full_chemistry_cpu():
+        finals = [R.rollout(*make_monte_carlo_batch(
+            full_cfg, 16, seed=0, dtype=torch.float64, device=d), full_bc,
+            DT, 3, 20, record=False)[0]
+            for d in (dev, torch.device("cpu"))]
+        worst = {}
+        for f in dataclasses.fields(finals[1]):
+            a, b = getattr(finals[0], f.name), getattr(finals[1], f.name)
+            if b is None:
+                continue
+            a = a.cpu()
+            # each field's largest error as a share of rtol |b| + atol
+            worst[f.name] = float(((a - b).abs()
+                                   / (1e-9 * b.abs() + 1e-12)).max())
+        report["full_chemistry_card_vs_cpu"] = worst
+        top = max(worst, key=worst.get)
+        check(max(worst.values()) <= 1.0 and len(worst) >= 22,
+              "16 plants x 20 zones x 20 steps in float64, card vs CPU: "
+              f"every field within rtol 1e-9 + atol 1e-12 (largest share "
+              f"of the tolerance {worst[top]:.3g}, in {top})")
+        return True
+
+    full_chemistry_cpu()
+
+    @phase("path: instrumented full-chemistry plant")
+    def plant_ext():
+        params, plant = P.make_plant(full_cfg, dtype=f32, device=dev)
+        m = R.default_substeps(full_cfg, DT)
+        reset_kernel_counts()
+        P.plant_rollout_auto(params, plant, full_bc, DT, m, 2, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final, readings = P.plant_rollout_auto(params, plant, full_bc, DT, m,
+                                               600, record=True, seed=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = kernel_counts()
+        shares = {name: float(torch.isfinite(v).double().mean())
+                  for name, v in readings.items()}
+        report["plant_ext"] = dict(
+            zones=20, steps=600, substeps=m, seconds=seconds,
+            steps_per_s=600 / seconds, finite_share=shares,
+            kernel_launches=counts)
+        extra = ("ammonia_outlet", "oxygen_outlet", "turbidity_outlet")
+        check(len(readings) == 10 and all(n in readings for n in extra)
+              and all(v.shape == (600,) for v in readings.values())
+              and FP.unsupported_reason(params) is not None
+              and not any(counts.values())
+              and bool(torch.isfinite(final.reactor.pathogens).all()),
+              f"PLANT-EXT-1 (1 plant x 20 zones, 10 instruments, "
+              f"plant_rollout_auto -> the plant_step loop): 600 steps in "
+              f"{seconds:.2f} s, {600 / seconds:.2f} steps/s (host clock); "
+              "finite readings "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+              + f"; no B1-B4 launch ({counts})")
+        return True
+
+    plant_ext()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -986,6 +1162,46 @@ def main() -> int:
         kernels[name]["launches"] = n
         check(n > 0, f"{name}: {n} launches on the main path")
     return finish(kernels, card)
+
+
+# FULLCHEM-8192's timed window [s]: its step count is cut to fit it
+FULLCHEM_WINDOW_S = 10.0
+
+
+def fmt(x, spec):
+    return "not measured" if x is None else format(x, spec)
+
+
+def step_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (CUDA kernels launched and
+    their summed device time) and under a dispatch counter (aten
+    operations); the kernel numbers are None when the profiler records no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if getattr(e.device_type, "name", "") == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return dict(aten_ops=Count.n, wall_ms=wall_ms,
+                launches=len(kernels) if kernels else None,
+                device_ms=device_ms if kernels else None)
 
 
 def finish(kernels, card) -> int:

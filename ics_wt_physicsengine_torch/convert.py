@@ -19,25 +19,25 @@ import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.core.chemistry import constants_from_numpy
-from ics_wt_physicsengine_torch.device import (resolve_device,
+from ics_wt_physicsengine_torch.device import (dataclass_from_numpy,
+                                               resolve_device,
                                                tensor_from_numpy)
+from ics_wt_physicsengine_torch.sensors import ammonia as SA
 from ics_wt_physicsengine_torch.sensors import base as SB
 from ics_wt_physicsengine_torch.sensors import chlorine as SC
 from ics_wt_physicsengine_torch.sensors import electrical as SE
 from ics_wt_physicsengine_torch.sensors import flow as SF
+from ics_wt_physicsengine_torch.sensors import oxygen as SO
 from ics_wt_physicsengine_torch.sensors import ph as SP
 from ics_wt_physicsengine_torch.sensors import temperature as ST
+from ics_wt_physicsengine_torch.sensors import turbidity as STB
 
 
 def params_from_numpy(values, dtype=None, device=None) -> R.ReactorParams:
-    """``ReactorParams`` from a mapping of its fields. An extension axis
-    that is present and not ``None`` raises ``NotImplementedError``."""
+    """``ReactorParams`` from a mapping of its fields; ``chem`` and each
+    extension axis that is present and not ``None`` nest as mappings of
+    their own fields."""
     dev = resolve_device(device)
-    for axis in R.EXTENSION_AXES:
-        if values.get(axis) is not None:
-            raise NotImplementedError(
-                f"the {axis} extension axis is not ported to the PyTorch "
-                "package yet")
     kw = {}
     for f in fields(R.ReactorParams):
         if f.name == "n_zones":
@@ -45,7 +45,12 @@ def params_from_numpy(values, dtype=None, device=None) -> R.ReactorParams:
         elif f.name == "chem":
             kw[f.name] = constants_from_numpy(values["chem"], dtype=dtype,
                                               device=dev)
-        elif f.name not in R.EXTENSION_AXES:
+        elif f.name in R.EXTENSION_PARAMS:
+            if values.get(f.name) is not None:
+                kw[f.name] = dataclass_from_numpy(
+                    R.EXTENSION_PARAMS[f.name][0], values[f.name], dtype,
+                    dev)
+        else:
             kw[f.name] = tensor_from_numpy(values[f.name], dtype, dev)
     return R.ReactorParams(**kw)
 
@@ -60,16 +65,9 @@ _STATE_FIELDS = tuple(f.name for f in fields(R.ReactorState))
 
 
 def state_from_numpy(values, dtype=None, device=None) -> R.ReactorState:
-    """``ReactorState`` from a mapping of its fields (derived fields may be
-    ``None`` or absent). Extension species that are present and not
-    ``None`` raise ``NotImplementedError``."""
+    """``ReactorState`` from a mapping of its fields; derived fields and
+    the species of axes that are off may be ``None`` or absent."""
     dev = resolve_device(device)
-    extra = [k for k, v in values.items()
-             if k not in _STATE_FIELDS and v is not None]
-    if extra:
-        raise NotImplementedError(
-            f"state fields {extra} belong to extension axes that are not "
-            "ported to the PyTorch package yet")
     return R.ReactorState(**{
         name: (None if values.get(name) is None
                else tensor_from_numpy(values[name], dtype, dev))
@@ -81,17 +79,19 @@ def boundary_from_numpy(values, dtype=None,
     """``BoundaryConditions`` from a mapping of its fields. Scalars stay
     Python floats (they take the state's dtype in arithmetic, as JAX's
     weakly typed scalars do); arrays (``[B]`` per plant or ``[n_steps]``
-    in a schedule) become ``dtype`` tensors. Keys of the JAX package's
-    extension-axis inputs, which the core physics never reads, are
-    ignored."""
+    in a schedule, ``[..., C]`` per-class inlet vectors) become ``dtype``
+    tensors; ``None`` stays ``None``."""
     dev = resolve_device(device)
     kw = {}
     for f in fields(R.BoundaryConditions):
         if f.name not in values:
             continue
         v = values[f.name]
-        kw[f.name] = (float(v) if np.ndim(v) == 0
-                      else tensor_from_numpy(v, dtype, dev))
+        if v is None:
+            kw[f.name] = None
+        else:
+            kw[f.name] = (float(v) if np.ndim(v) == 0
+                          else tensor_from_numpy(v, dtype, dev))
     return R.BoundaryConditions(**kw)
 
 
@@ -170,15 +170,25 @@ _SENSOR_CLASSES = {
     "temp_inlet": (ST.TemperatureSensorParams, ST.TemperatureSensorCarry),
     "temp_outlet": (ST.TemperatureSensorParams, ST.TemperatureSensorCarry),
 }
-_EXTENSION_SENSORS = ("ammonia_outlet", "oxygen_outlet", "turbidity_outlet")
+# the extension axes' instruments: None (or absent) when their axis is off
+_EXTENSION_SENSOR_CLASSES = {
+    "ammonia_outlet": (SA.AmmoniaSensorParams, SA.AmmoniaSensorCarry),
+    "oxygen_outlet": (SO.OxygenSensorParams, SO.OxygenSensorCarry),
+    "turbidity_outlet": (STB.TurbiditySensorParams,
+                         STB.TurbiditySensorCarry),
+}
 
 
-def _reject_extension_sensors(values):
-    for name in _EXTENSION_SENSORS:
-        if values.get(name) is not None:
-            raise NotImplementedError(
-                f"the {name} instrument belongs to an extension axis that "
-                "is not ported to the PyTorch package yet")
+def _sensors(values, which, build, dtype, device):
+    """Every base sensor, and each extension sensor that is present."""
+    out = {name: build(classes[which], values[name], dtype=dtype,
+                       device=device)
+           for name, classes in _SENSOR_CLASSES.items()}
+    out.update({name: build(classes[which], values[name], dtype=dtype,
+                            device=device)
+                for name, classes in _EXTENSION_SENSOR_CLASSES.items()
+                if values.get(name) is not None})
+    return out
 
 
 def plant_params_from_numpy(values, dtype=None, device=None):
@@ -187,13 +197,10 @@ def plant_params_from_numpy(values, dtype=None, device=None):
     ``sensor_params_from_numpy`` does."""
     from ics_wt_physicsengine_torch.models.plant import PlantParams
 
-    _reject_extension_sensors(values)
     return PlantParams(
         reactor=params_from_numpy(values["reactor"], dtype=dtype,
                                   device=device),
-        **{name: sensor_params_from_numpy(classes[0], values[name],
-                                          dtype=dtype, device=device)
-           for name, classes in _SENSOR_CLASSES.items()})
+        **_sensors(values, 0, sensor_params_from_numpy, dtype, device))
 
 
 def plant_state_from_numpy(values, dtype=None, device=None):
@@ -202,10 +209,7 @@ def plant_state_from_numpy(values, dtype=None, device=None):
     ``sensor_carry_from_numpy`` does."""
     from ics_wt_physicsengine_torch.models.plant import PlantState
 
-    _reject_extension_sensors(values)
     return PlantState(
         reactor=state_from_numpy(values["reactor"], dtype=dtype,
                                  device=device),
-        **{name: sensor_carry_from_numpy(classes[1], values[name],
-                                         dtype=dtype, device=device)
-           for name, classes in _SENSOR_CLASSES.items()})
+        **_sensors(values, 1, sensor_carry_from_numpy, dtype, device))

@@ -3,6 +3,7 @@ Physics core: the multi-zone CSTR over dense zone tensors.
 
 Layering:
   thermodynamics -> chemistry / transport / spatial -> reactor
+  extension axes: nitrogen, gas, particles, disinfection, biofilm, phase
 
 The compute paths are functions on tensors; the exported classes are the
 reference simulator's object API over them (same names and signatures as
@@ -52,25 +53,77 @@ from ics_wt_physicsengine_torch.core.reactor import (  # noqa: F401
     step,
     validate_integrated_reactor,
 )
+from ics_wt_physicsengine_torch.core.nitrogen import (  # noqa: F401
+    NitrogenParams,
+    make_nitrogen_params,
+    total_nitrogen_mgN,
+    validate_nitrogen,
+)
+from ics_wt_physicsengine_torch.core.gas import (  # noqa: F401
+    GasParams,
+    co2_henry_constant,
+    make_gas_params,
+    oxygen_saturation,
+    validate_gas,
+)
+from ics_wt_physicsengine_torch.core.particles import (  # noqa: F401
+    ParticleParams,
+    make_particle_params,
+    stokes_velocity,
+    total_solids_mgl,
+    turbidity_ntu,
+    turbidity_ntu_tap,
+    validate_particles,
+)
+from ics_wt_physicsengine_torch.core.disinfection import (  # noqa: F401
+    DisinfectionParams,
+    PATHOGEN_NAMES,
+    absorbance_254,
+    log_inactivation,
+    make_disinfection_params,
+    uvt_percent,
+    validate_disinfection,
+)
+from ics_wt_physicsengine_torch.core.biofilm import (  # noqa: F401
+    BiofilmParams,
+    hpc_cfu_per_ml,
+    make_biofilm_params,
+    total_biomass_carbon,
+    validate_biofilm,
+)
+from ics_wt_physicsengine_torch.core.phase import (  # noqa: F401
+    PhaseParams,
+    enthalpy,
+    evaporation_flux,
+    ice_fraction,
+    make_phase_params,
+    saturation_vapor_pressure,
+    validate_phase,
+)
 from ics_wt_physicsengine_torch.device import resolve_device
+
+_AXIS_SUITES = (("nitrogen chemistry", validate_nitrogen),
+                ("gas exchange", validate_gas),
+                ("particle dynamics", validate_particles),
+                ("disinfection", validate_disinfection),
+                ("biofilm", validate_biofilm),
+                ("phase-change", validate_phase))
 
 
 def run_all_validations(device=None) -> None:
-    """Run the five core validation suites: thermodynamics, chemistry,
-    transport, spatial, integrated reactor. The suites that touch tensors
-    (transport's stencil check, the reactor) run on ``device`` (``None``:
-    the CUDA card); the others are host-side oracles.
-
-    The JAX package's ``run_all_validations`` also runs the suites of its
-    six extension axes (nitrogen, gas, particles, disinfection, biofilm,
-    phase). Those axes are not ported yet, so their suites do not run here
-    and this function does not vouch for them."""
+    """Run the five core validation suites (thermodynamics, chemistry,
+    transport, spatial, integrated reactor), then the six extension-axis
+    suites (nitrogen, gas, particles, disinfection, biofilm, phase). The
+    suites that touch tensors run on ``device`` (``None``: the CUDA card);
+    the others are host-side oracles."""
     device = resolve_device(device)
-    print(f"Running the core physics validations on {device}...")
+    print(f"Running all physics validations on {device}...")
     validate_thermodynamics()
     validate_chemistry()
     validate_transport(device)
     validate_spatial()
     validate_integrated_reactor(device)
-    print("ALL CORE PHYSICS VALIDATIONS PASSED "
-          "(extension-axis suites: not ported)")
+    for name, suite in _AXIS_SUITES:
+        if not suite(device=device):
+            raise RuntimeError(f"{name} validation failed")
+    print("ALL PHYSICS VALIDATIONS PASSED")

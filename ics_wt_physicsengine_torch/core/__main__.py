@@ -1,4 +1,5 @@
-"""Run the five core physics validation suites:
+"""Run the eleven physics validation suites (five core, six extension
+axes):
 
     python -m ics_wt_physicsengine_torch.core [--device cpu]
 

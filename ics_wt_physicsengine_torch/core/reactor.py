@@ -19,21 +19,30 @@ ODE system:
   T:   inlet + mixing - U A (T - T_amb)/(rho cp V)
 with the stratification-modified exchange operator rebuilt each evaluation.
 
-The six extension axes (nitrogen, gas, particles, disinfection, biofilm,
-phase) are not ported yet: enabling one raises ``NotImplementedError``.
+Six optional extension axes add species and terms (``core/nitrogen.py``,
+``gas.py``, ``particles.py``, ``disinfection.py``, ``biofilm.py``,
+``phase.py``). An axis is on when its parameters are present; off, the
+state carries none of its fields and every code path is the core one. The
+axes run the plain PyTorch step: the fused kernels refuse them.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ics_wt_physicsengine_torch.core import biofilm as biofilm_mod
 from ics_wt_physicsengine_torch.core import chemistry as chem
 from ics_wt_physicsengine_torch.core import constants as c
+from ics_wt_physicsengine_torch.core import disinfection as disinfection_mod
+from ics_wt_physicsengine_torch.core import gas as gas_mod
+from ics_wt_physicsengine_torch.core import nitrogen as nitrogen_mod
+from ics_wt_physicsengine_torch.core import particles as particles_mod
+from ics_wt_physicsengine_torch.core import phase as phase_mod
 from ics_wt_physicsengine_torch.core import spatial as spatial_mod
 from ics_wt_physicsengine_torch.core import thermodynamics as thermo
 from ics_wt_physicsengine_torch.core import transport as transport_mod
@@ -41,12 +50,29 @@ from ics_wt_physicsengine_torch.core.chemistry import ChemistryConstants, LN10
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE, numpy_dtype,
                                                resolve_device)
 from ics_wt_physicsengine_torch.ops import integrators
-from ics_wt_physicsengine_torch.utils.dispatch import align_trailing
+from ics_wt_physicsengine_torch.utils.dispatch import (align_trailing,
+                                                       map_tensors)
 
 EXTENSION_FLAGS = ("enable_nitrogen", "enable_gas", "enable_particles",
                    "enable_disinfection", "enable_biofilm", "enable_phase")
 EXTENSION_AXES = ("nitrogen", "gas", "particles", "disinfection", "biofilm",
                   "phase")
+# axis -> (parameter class, the NumPy function that makes its fields, the
+# configuration field holding that function's overrides)
+EXTENSION_PARAMS = {
+    "nitrogen": (nitrogen_mod.NitrogenParams,
+                 nitrogen_mod.nitrogen_params_numpy, "nitrogen_kinetics"),
+    "gas": (gas_mod.GasParams, gas_mod.gas_params_numpy, "gas_params"),
+    "particles": (particles_mod.ParticleParams,
+                  particles_mod.particle_params_numpy, "particle_params"),
+    "disinfection": (disinfection_mod.DisinfectionParams,
+                     disinfection_mod.disinfection_params_numpy,
+                     "disinfection_params"),
+    "biofilm": (biofilm_mod.BiofilmParams,
+                biofilm_mod.biofilm_params_numpy, "biofilm_params"),
+    "phase": (phase_mod.PhaseParams, phase_mod.phase_params_numpy,
+              "phase_params"),
+}
 
 
 @dataclass
@@ -85,33 +111,41 @@ class ReactorConfiguration:
     inlet_chlorine: float = 0.0   # [mg/L]
     inlet_temperature: float = 20.0  # [C]
 
-    # Extension axes (not ported yet; enabling one raises
-    # NotImplementedError). Their fields are kept so that configurations
-    # carry over from the JAX package unchanged.
+    # Nitrogen / biological chemistry (core/nitrogen.py)
     enable_nitrogen: bool = False
-    initial_ammonia: float = 0.0
-    initial_nitrite: float = 0.0
-    initial_nitrate: float = 0.0
-    initial_chloramine: float = 0.0
-    nitrogen_kinetics: Optional[dict] = None
+    initial_ammonia: float = 0.0     # [mg N/L] total ammonia nitrogen
+    initial_nitrite: float = 0.0     # [mg N/L]
+    initial_nitrate: float = 0.0     # [mg N/L]
+    initial_chloramine: float = 0.0  # [mg/L as Cl2] (combined chlorine)
+    nitrogen_kinetics: Optional[dict] = None  # nitrogen_params_numpy kw
+
+    # Gas exchange (core/gas.py)
     enable_gas: bool = False
-    initial_oxygen: Optional[float] = None
-    gas_params: Optional[dict] = None
+    initial_oxygen: Optional[float] = None   # [mg/L]; None = saturation(T)
+    gas_params: Optional[dict] = None        # gas_params_numpy kw
+
+    # Particle dynamics (core/particles.py)
     enable_particles: bool = False
-    initial_tss: float = 10.0
-    particle_params: Optional[dict] = None
+    initial_tss: float = 10.0                # [mg/L] total suspended solids
+    particle_params: Optional[dict] = None   # particle_params_numpy kw
+
+    # Disinfection (core/disinfection.py)
     enable_disinfection: bool = False
-    initial_pathogens: float = 0.0
-    initial_toc: float = 2.0
-    initial_thm: float = 0.0
-    disinfection_params: Optional[dict] = None
+    initial_pathogens: float = 0.0           # [org/L] every pathogen class
+    initial_toc: float = 2.0                 # [mg/L] organic carbon
+    initial_thm: float = 0.0                 # [ug/L] trihalomethanes
+    disinfection_params: Optional[dict] = None  # disinfection_params_numpy
+
+    # Biofilm / bacterial regrowth (core/biofilm.py)
     enable_biofilm: bool = False
-    initial_bacteria: float = 1e-4
-    initial_bdoc: float = 0.3
-    initial_biofilm: float = 0.0
-    biofilm_params: Optional[dict] = None
+    initial_bacteria: float = 1e-4           # [mg C/L] (~5e2 CFU/mL HPC)
+    initial_bdoc: float = 0.3                # [mg/L] biodegradable DOC
+    initial_biofilm: float = 0.0             # [mg C/m2] wall film
+    biofilm_params: Optional[dict] = None    # biofilm_params_numpy kw
+
+    # Phase change (core/phase.py): widens the [0, 100] C temperature clip
     enable_phase: bool = False
-    phase_params: Optional[dict] = None
+    phase_params: Optional[dict] = None      # phase_params_numpy kw
 
     def validate(self) -> None:
         """Configuration consistency; elementwise over a batch."""
@@ -142,24 +176,19 @@ class ReactorConfiguration:
         if not ok((0 <= cl) & (cl <= 10)):
             raise ValueError("Chlorine out of range")
         t = np.asarray(self.temperature)
-        if not ok((0 <= t) & (t <= 40)):
+        if self.enable_phase:
+            # sub-zero states are ice; the boil band caps the hot end
+            if not ok((-60 <= t) & (t <= 100)):
+                raise ValueError("Temperature out of phase-change range")
+        elif not ok((0 <= t) & (t <= 40)):
             raise ValueError("Temperature out of typical range")
-
-
-def reject_extensions(config: ReactorConfiguration) -> None:
-    """Raise ``NotImplementedError`` for an enabled extension axis."""
-    for flag in EXTENSION_FLAGS:
-        if getattr(config, flag, False):
-            raise NotImplementedError(
-                f"{flag}: the {flag[len('enable_'):]} extension axis is not "
-                "ported to the PyTorch package yet")
 
 
 @dataclass(frozen=True)
 class ReactorParams:
     """Physical parameters: 0-d tensors for one plant, ``[B]`` tensors for
-    a Monte-Carlo batch. ``n_zones`` is a Python int. The extension axes are
-    ``None`` (not ported yet); the fused kernels reject anything else."""
+    a Monte-Carlo batch. ``n_zones`` is a Python int. An extension axis is
+    ``None`` when it is off; the fused kernels reject any that is on."""
 
     n_zones: int
 
@@ -185,12 +214,13 @@ class ReactorParams:
     ri_crit: torch.Tensor = None
     supp_factor: torch.Tensor = None
 
-    nitrogen: Optional[object] = None
-    gas: Optional[object] = None
-    particles: Optional[object] = None
-    disinfection: Optional[object] = None
-    biofilm: Optional[object] = None
-    phase: Optional[object] = None
+    # extension axes (None = off)
+    nitrogen: Optional[nitrogen_mod.NitrogenParams] = None
+    gas: Optional[gas_mod.GasParams] = None
+    particles: Optional[particles_mod.ParticleParams] = None
+    disinfection: Optional[disinfection_mod.DisinfectionParams] = None
+    biofilm: Optional[biofilm_mod.BiofilmParams] = None
+    phase: Optional[phase_mod.PhaseParams] = None
 
 
 @dataclass(frozen=True)
@@ -212,6 +242,45 @@ class BoundaryConditions:
     ambient_temperature: float = 20.0  # [C]
     heat_loss_coefficient: float = 0.0  # [W/K]
 
+    inlet_ammonia: float = 0.0         # [mg N/L] (nitrogen only)
+
+    # gas exchange only: source-water O2 / total carbonate and the
+    # diffused-aeration actuator (volumetric O2 kLa; CO2 rides the same
+    # bubbles scaled by the film ratio)
+    inlet_oxygen: float = 9.0          # [mg/L]
+    inlet_carbonate: float = 2.0       # [mmol/L]
+    aeration_kla: float = 0.0          # [1/s]
+
+    # particle dynamics only: source-water solids and the coagulant,
+    # filter and sludge-blowdown actuators
+    inlet_tss: float = 10.0            # [mg/L]
+    coagulant_dose: float = 0.0        # [mg/L]
+    filter_flow_rate: float = 0.0      # [L/min]
+    sludge_blowdown: float = 0.0       # [1/s]
+    # optional per-class source-water solids [..., C] [mg/L]; when set it
+    # replaces inlet_tss x inlet_fractions
+    inlet_tss_classes: Optional[torch.Tensor] = None
+
+    # disinfection only: source-water pathogens and organics, inlet CT /
+    # age / THM, and the UV bank (lamp wall fluence rate at the outlet zone)
+    inlet_pathogens: float = 0.0       # [org/L] every class
+    inlet_toc: float = 2.0             # [mg/L]
+    inlet_ct: float = 0.0              # [mg min/L]
+    inlet_age: float = 0.0             # [s]
+    inlet_thm: float = 0.0             # [ug/L]
+    uv_intensity: float = 0.0          # [mW/cm2] lamp wall fluence rate
+    # optional per-class source-water pathogens [..., P] [org/L]; when set
+    # it replaces inlet_pathogens
+    inlet_pathogen_classes: Optional[torch.Tensor] = None
+
+    # biofilm only: source-water planktonic biomass and substrate
+    inlet_bacteria: float = 0.0        # [mg C/L]
+    inlet_bdoc: float = 0.3            # [mg/L]
+
+    # phase change only: the ambient moisture and wind over the surface
+    ambient_humidity: float = 0.5      # relative humidity in [0, 1]
+    wind_speed: float = 0.0            # [m/s]
+
 
 @dataclass
 class ReactorState:
@@ -228,12 +297,48 @@ class ReactorState:
     density: torch.Tensor = None
     chlorine_decay_rate: torch.Tensor = None
 
+    # nitrogen species (None unless enable_nitrogen; [..., Z])
+    ammonia: torch.Tensor = None     # total ammonia nitrogen [mg N/L]
+    nitrite: torch.Tensor = None     # [mg N/L]
+    nitrate: torch.Tensor = None     # [mg N/L]
+    chloramine: torch.Tensor = None  # monochloramine [mg/L as Cl2]
+
+    # gas species (None unless enable_gas; [..., Z])
+    oxygen: torch.Tensor = None      # dissolved O2 [mg/L]
+    carbonate: torch.Tensor = None   # total carbonate C_T [mmol/L]
+
+    # particle classes (None unless enable_particles)
+    tss: torch.Tensor = None         # [..., C, Z] [mg/L]
+    sludge: torch.Tensor = None      # [..., C] settled inventory
+
+    # disinfection (None unless enable_disinfection)
+    pathogens: torch.Tensor = None   # [..., P, Z] [org/L]
+    ct: torch.Tensor = None          # [..., Z] CT credit [mg min/L]
+    age: torch.Tensor = None         # [..., Z] water age [s]
+    toc: torch.Tensor = None         # [..., Z] organics [mg/L]
+    thm: torch.Tensor = None         # [..., Z] THMs [ug/L]
+
+    # biofilm / regrowth (None unless enable_biofilm; [..., Z])
+    bacteria: torch.Tensor = None    # planktonic [mg C/L]
+    bdoc: torch.Tensor = None        # substrate [mg/L]
+    biofilm: torch.Tensor = None     # wall film [mg C/m2]
+
+
+# the state fields each extension axis adds, in the step's species order
+EXTENSION_STATE = {
+    "nitrogen": ("ammonia", "nitrite", "nitrate", "chloramine"),
+    "gas": ("oxygen", "carbonate"),
+    "particles": ("tss", "sludge"),
+    "disinfection": ("pathogens", "ct", "age", "toc", "thm"),
+    "biofilm": ("bacteria", "bdoc", "biofilm"),
+}
+
 
 def params_numpy(config: ReactorConfiguration, np_dtype) -> dict:
     """The parameter fields as NumPy arrays of ``np_dtype`` (``chem``
     nested), computed in float64 exactly as the JAX package's
-    ``make_params`` does."""
-    reject_extensions(config)
+    ``make_params`` does. An enabled extension axis is a nested mapping of
+    its own fields."""
     config.validate()
     geometry = transport_mod.GeometryParameters(
         volume=config.volume, height=config.height,
@@ -258,6 +363,9 @@ def params_numpy(config: ReactorConfiguration, np_dtype) -> dict:
 
     k = chem.chemistry_constants_numpy(
         config.alkalinity, config.total_carbonate, config.temperature)
+    axes = {axis: build(np_dtype, **(getattr(config, overrides) or {}))
+            for axis, (_, build, overrides) in EXTENSION_PARAMS.items()
+            if getattr(config, f"enable_{axis}")}
     return dict(
         n_zones=config.n_zones,
         volume_L=arr(config.volume),
@@ -273,6 +381,7 @@ def params_numpy(config: ReactorConfiguration, np_dtype) -> dict:
                           else 0.0),
         ri_crit=arr(0.25),
         supp_factor=arr(0.5),
+        **axes,
     )
 
 
@@ -280,8 +389,8 @@ def initial_state_numpy(config: ReactorConfiguration, np_dtype) -> dict:
     """The initial state fields as NumPy arrays of ``np_dtype``, derived
     quantities included, computed as the JAX package's
     ``make_initial_state`` does. Array-valued configuration fields give
-    ``[B, n_zones]`` zone fields."""
-    reject_extensions(config)
+    ``[B, n_zones]`` zone fields (``[B, C, n_zones]`` for the particle and
+    pathogen classes)."""
     z = config.n_zones
     batch = np.shape(np.asarray(config.initial_pH))
 
@@ -290,6 +399,39 @@ def initial_state_numpy(config: ReactorConfiguration, np_dtype) -> dict:
         v = np.broadcast_to(v[..., None], v.shape + (z,))
         return np.broadcast_to(v, batch + (z,)).copy()
 
+    ext = {}
+    if config.enable_nitrogen:
+        ext.update(ammonia=full(config.initial_ammonia),
+                   nitrite=full(config.initial_nitrite),
+                   nitrate=full(config.initial_nitrate),
+                   chloramine=full(config.initial_chloramine))
+    if config.enable_gas:
+        o2_0 = config.initial_oxygen
+        if o2_0 is None:
+            o2_0 = gas_mod.oxygen_saturation(
+                np.asarray(config.temperature, np.float64))
+        ext.update(oxygen=full(o2_0), carbonate=full(config.total_carbonate))
+    if config.enable_particles:
+        pp = particles_mod.particle_params_numpy(
+            np.float64, **(config.particle_params or {}))
+        fr = np.asarray(pp["inlet_fractions"], np_dtype)      # [C]
+        tss0 = np.asarray(config.initial_tss, np_dtype)       # [...] or ()
+        ext.update(
+            tss=np.broadcast_to((tss0[..., None] * fr)[..., None],
+                                batch + (particles_mod.N_CLASSES, z)).copy(),
+            sludge=np.zeros(batch + (particles_mod.N_CLASSES,), np_dtype))
+    if config.enable_disinfection:
+        n0 = np.asarray(config.initial_pathogens, np_dtype)
+        ext.update(
+            pathogens=np.broadcast_to(
+                n0[..., None, None],
+                batch + (disinfection_mod.N_PATHOGENS, z)).copy(),
+            ct=full(0.0), age=full(0.0), toc=full(config.initial_toc),
+            thm=full(config.initial_thm))
+    if config.enable_biofilm:
+        ext.update(bacteria=full(config.initial_bacteria),
+                   bdoc=full(config.initial_bdoc),
+                   biofilm=full(config.initial_biofilm))
     state = ReactorState(
         time=np.zeros(batch, np_dtype) if batch
         else np.asarray(0.0, np_dtype),
@@ -299,6 +441,7 @@ def initial_state_numpy(config: ReactorConfiguration, np_dtype) -> dict:
         flow_rate=np.broadcast_to(
             np.asarray(config.flow_rate, np_dtype), batch).copy()
         if batch else np.asarray(config.flow_rate, np_dtype),
+        **ext,
     )
     state = _update_derived(state)
     return {f.name: getattr(state, f.name) for f in fields(state)}
@@ -329,21 +472,66 @@ def _add_at_first(x, v):
     return torch.cat([(x[..., 0] + v)[..., None], x[..., 1:]], dim=-1)
 
 
+def _add_at_last(x, v):
+    """``x`` with ``v`` added to zone Z-1 (``x.at[..., -1].add(v)``)."""
+    return torch.cat([x[..., :-1], (x[..., -1] + v)[..., None]], dim=-1)
+
+
+def _last_zone_mask(like):
+    """A ``[..., Z]`` one-hot of zone Z-1: the free surface (gas exchange,
+    evaporation) and the outlet (the UV bank)."""
+    mask = torch.zeros_like(like)
+    mask[..., -1] = 1.0
+    return mask
+
+
+def _aligned(axis_params, like):
+    """Every field of an axis's parameters padded against ``like``."""
+    return map_tensors(lambda x: align_trailing(x, like), axis_params)
+
+
 def derivatives(params: ReactorParams, pH, Cl, T,
-                boundary: BoundaryConditions):
-    """d(pH, Cl, T)/dt for ``[..., Z]`` zone tensors; the inlet and dosing
-    sources enter at zone 0 and the outlet sink leaves at zone Z-1."""
+                boundary: BoundaryConditions, nitrogen=None, gas=None,
+                particles=None, disinfection=None, biofilm=None):
+    """d(pH, Cl, T)/dt for ``[..., Z]`` zone tensors, followed by the
+    tendencies of the extension species passed in: ``nitrogen`` (ammonia,
+    nitrite, nitrate, chloramine), ``gas`` (oxygen, carbonate),
+    ``particles`` (tss ``[..., C, Z]``, sludge ``[..., C]``),
+    ``disinfection`` (pathogens ``[..., P, Z]``, ct, age, toc, thm) and
+    ``biofilm`` (bacteria, bdoc, biofilm). The inlet and dosing sources
+    enter at zone 0 and the outlet sink leaves at zone Z-1; the phase axis
+    acts through ``params.phase`` alone."""
     k = params.chem
 
     # In-domain clamp: every term is evaluated at in-bounds values, so an
     # extreme forcing cannot drive an intermediate stage to inf/NaN.
     pH = torch.clip(pH, 0.0, 14.0)
     Cl = torch.clamp(Cl, min=0.0)
-    T = torch.clip(T, 0.0, 100.0)
+    pp_ph = phi = None
+    if params.phase is not None:
+        # sub-zero states are ice and the boil band caps the hot end
+        pp_ph = _aligned(params.phase, T)
+        T = torch.minimum(torch.maximum(T, pp_ph.t_min),
+                          pp_ph.t_boil + pp_ph.delta_boil)
+        phi = phase_mod.ice_fraction(T, pp_ph)
+    else:
+        T = torch.clip(T, 0.0, 100.0)
+
+    # Gas exchange makes total carbonate a per-zone state: buffering and
+    # speciation see the dynamic C_T.
+    if gas is not None:
+        o2_s, ct_s = (torch.clamp(x, min=0.0) for x in gas)
+        ct_mol = ct_s * 1e-3
+        k = replace(k, C_T_mol=ct_mol)
 
     # Stratification-modified exchange operator: density profile ->
-    # Richardson per interface -> suppression -> k_iface.
-    rho = spatial_mod.water_density(T)
+    # Richardson per interface -> suppression -> k_iface. With phase change
+    # the Richardson path sees the ice-water mixture density and ice
+    # throttles the exchange.
+    if phi is None:
+        rho = spatial_mod.water_density(T)
+    else:
+        rho = phase_mod.effective_density(T, pp_ph)
     supp = spatial_mod.mixing_suppression(
         rho, params.zone_height, params.velocity_scale,
         critical_richardson=params.ri_crit,
@@ -352,6 +540,8 @@ def derivatives(params: ReactorParams, pH, Cl, T,
     )
     k_iface = params.k_exchange[..., None] * supp if params.k_exchange.ndim \
         else params.k_exchange * supp
+    if phi is not None:
+        k_iface = k_iface * phase_mod.interface_mobility(phi)
 
     # Dilution rate from the *boundary* inlet flow.
     q_per_v = (boundary.inlet_flow_rate / 60.0) / params.volume_L
@@ -394,7 +584,220 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         / (c.WATER_DENSITY_20C * c.WATER_CP * v_m3)
     loss = align_trailing(heat_rate, T) \
         * (T - align_trailing(boundary.ambient_temperature, T))
-    return dpH, dCl, dT - loss
+    if phi is not None:
+        # Phase change: ice insulates the ambient loss, the free surface
+        # loses latent heat to evaporation (blocked by an ice lid), and the
+        # whole tendency is divided by the apparent heat capacity, so
+        # temperatures pin at the phase fronts.
+        loss = loss * (1.0 - pp_ph.ice_insulation * phi)
+        q_evap = phase_mod.evaporative_cooling_flux(
+            T, align_trailing(boundary.ambient_temperature, T),
+            align_trailing(boundary.ambient_humidity, T),
+            align_trailing(boundary.wind_speed, T), pp_ph)
+        a_cross = params.volume_L / 1000.0 \
+            / (params.zone_height * params.n_zones)          # [m^2]
+        evap_rate = q_evap * align_trailing(
+            a_cross / (c.WATER_DENSITY_20C * c.WATER_CP
+                       * (params.zone_volume_L / 1000.0)), T)  # [K/s]
+        sink = loss + evap_rate * (1.0 - phi) * _last_zone_mask(T)
+        dT = (dT - sink) * (1.0 / phase_mod.heat_capacity_ratio(T, pp_ph))
+    else:
+        dT = dT - loss
+
+    if nitrogen is None and gas is None and particles is None \
+            and disinfection is None and biofilm is None:
+        return dpH, dCl, dT
+
+    # shared inlet/source helper for the extension species
+    def species(x, inlet_conc, reaction):
+        return _add_at_first(mix(x) + reaction,
+                             q_per_v * (inlet_conc - x[..., 0]))
+
+    # O2 limitation (gas) scales the nitrification rates and those rates
+    # set the O2 demand: rates first, equations second.
+    gp = None if gas is None else _aligned(params.gas, T)
+
+    extra = ()
+    r1 = r2 = None
+    if nitrogen is not None:
+        # Chloramine formation is absent here: step() applies it as an
+        # exact analytic operator split.
+        np_ = _aligned(params.nitrogen, T)
+        nh, no2, no3, nhcl = (torch.clamp(x, min=0.0) for x in nitrogen)
+        r1 = nitrogen_mod.nitrification_rate(nh, T, np_)      # [mg N/L/s]
+        r2 = nitrogen_mod.nitratation_rate(no2, T, np_)
+        r3 = nitrogen_mod.denitrification_rate(no3, T, np_)
+        if gas is not None:
+            # aerobic steps are Monod-limited in O2; denitrification is
+            # O2-inhibited
+            lim = gas_mod.o2_monod(o2_s, gp.K_o2_nitrif)
+            r1 = r1 * lim
+            r2 = r2 * lim
+            r3 = r3 * gas_mod.o2_inhibition(o2_s, gp.K_o2_denit)
+        r_cm_decay = (np_.k_cm_decay / nitrogen_mod.SECONDS_PER_DAY) * nhcl
+
+        dNH = species(nh, boundary.inlet_ammonia, -r1)
+        dNO2 = species(no2, 0.0, r1 - r2)
+        dNO3 = species(no3, 0.0, r2 - r3)
+        dNHCl = species(nhcl, 0.0, -r_cm_decay)
+
+        # alkalinity coupling through the buffering chain rule:
+        # nitrification releases 2 H+/N, denitrification consumes 1 H+/N
+        dH_bio = (nitrogen_mod.H_PER_N_NITRIF * r1
+                  + nitrogen_mod.H_PER_N_DENIT * r3) \
+            / nitrogen_mod._N_MGL_PER_MOL                    # [mol/L/s]
+        dpH = dpH - dH_bio * inv_beta_ln10
+        extra += (dNH, dNO2, dNO3, dNHCl)
+
+    if gas is not None:
+        # Two-film surface transfer on the top zone; diffused aeration
+        # (boundary.aeration_kla) acts on every zone.
+        kla_surf = gas_mod.kla_temperature(
+            gp.kl_surface / align_trailing(params.zone_height, T),
+            T, gp.theta_kla) * _last_zone_mask(T)
+        if phi is not None:
+            # an ice lid blocks the surface film (aeration below it works)
+            kla_surf = kla_surf * (1.0 - phi)
+        kla_o2 = kla_surf + align_trailing(boundary.aeration_kla, T)
+        r_o2 = kla_o2 * (gas_mod.oxygen_saturation(T) - o2_s)  # [mg/L/s]
+        demand = 0.0
+        if r1 is not None:
+            # nitrification oxygen demand: 3.43 + 1.14 g O2 / g N
+            demand = gas_mod.O2_PER_N_AOB * r1 + gas_mod.O2_PER_N_NOB * r2
+        dO2 = species(o2_s, boundary.inlet_oxygen, r_o2 - demand)
+
+        # CO2 exchanges against the dissolved (alpha0) carbonate fraction
+        a0, _, _ = chem.alpha_carbonate(pH, k.Ka1, k.Ka2)
+        r_co2_mol = (kla_o2 * gas_mod.CO2_FILM_RATIO) * (
+            gas_mod.co2_saturation_mol(T, gp.p_co2_atm) - a0 * ct_mol)
+        dCT = species(ct_s, boundary.inlet_carbonate, 1e3 * r_co2_mol)
+
+        # equilibrium pH shift at constant alkalinity
+        dpH = dpH + gas_mod.ph_per_carbonate(pH, k) * r_co2_mol
+        extra += (dO2, dCT)
+
+    if particles is not None:
+        # The class axis sits ahead of the zone axis ([..., C, Z]); the
+        # exchange stencil vectorizes over it through a class axis in the
+        # interface rates.
+        pp = params.particles
+        tss, sludge = (torch.clamp(x, min=0.0) for x in particles)
+
+        dTSS = transport_mod.apply_exchange(
+            tss, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        # inlet advection at zone 0, split by the source-water fractions
+        # or taken class-resolved from inlet_tss_classes
+        if boundary.inlet_tss_classes is None:
+            tss_in = align_trailing(boundary.inlet_tss, T) \
+                * pp.inlet_fractions
+        else:
+            tss_in = torch.as_tensor(boundary.inlet_tss_classes,
+                                     dtype=tss.dtype, device=tss.device)
+        dTSS = _add_at_first(
+            dTSS, align_trailing(q_per_v, tss_in) * (tss_in - tss[..., 0]))
+
+        # Stokes settling toward zone 0 at each zone's own viscosity
+        w_rate = particles_mod.settling_rates_zonal(
+            pp, T, params.zone_height)
+        dsettle, deposit = particles_mod.settle(tss, w_rate)
+        dTSS = dTSS + dsettle
+
+        # coagulation chain (mass-conserving across classes)
+        dTSS = dTSS + particles_mod.coagulation_chain(
+            tss, boundary.coagulant_dose, pp)
+
+        # recirculating filtration at the outlet zone
+        q_filter = (boundary.filter_flow_rate / 60.0) / params.zone_volume_L
+        dTSS = _add_at_last(
+            dTSS, -align_trailing(q_filter, tss[..., -1])
+            * pp.filter_eff * tss[..., -1])
+
+        # sludge inventory: deposit in, resuspension + blowdown out
+        resusp = align_trailing(pp.k_resuspension, sludge) * sludge
+        dSludge = deposit - resusp \
+            - align_trailing(boundary.sludge_blowdown, sludge) * sludge
+        dTSS = _add_at_first(dTSS, resusp)
+        extra += (dTSS, dSludge)
+
+    if disinfection is not None:
+        # Chick-Watson chlorine kill rides the right-hand side; the UV bank
+        # is an operator split in step(). The per-class leaves (k_cl,
+        # k_uv, [..., P]) broadcast through their own [..., P, Z] expansion
+        # and are not padded against the zone tensors.
+        dp0 = params.disinfection
+        dp = replace(_aligned(dp0, T), k_cl=dp0.k_cl, k_uv=dp0.k_uv)
+        path, ct_min, age_s, toc, thm = disinfection
+        path = torch.clamp(path, min=0.0)
+        toc = torch.clamp(toc, min=0.0)
+
+        # organics exert a chlorine demand; a pH-enhanced yield of it
+        # becomes THMs and TOC is consumed stoichiometrically
+        r_dem = disinfection_mod.chlorine_demand_rate(toc, Cl, T, dp)
+        dCl = dCl - r_dem
+        dTOC = species(toc, boundary.inlet_toc, -dp.s_toc * r_dem)
+        dTHM = species(torch.clamp(thm, min=0.0), boundary.inlet_thm,
+                       disinfection_mod.thm_formation_rate(r_dem, pH, dp))
+
+        # CT credit and water age as advected scalars
+        dCTcred = species(torch.clamp(ct_min, min=0.0), boundary.inlet_ct,
+                          Cl / disinfection_mod.SECONDS_PER_MIN)
+        dAge = species(torch.clamp(age_s, min=0.0), boundary.inlet_age,
+                       torch.ones_like(T))
+
+        # pathogen classes [..., P, Z]: mixing/advection over the class
+        # axis, Chick-Watson sink
+        lam = disinfection_mod.chlorine_lethality(
+            Cl, pH, T, align_trailing(k.Ka_HOCl, pH), dp)
+        dN = transport_mod.apply_exchange(
+            path, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        dN = dN - lam * path
+        if boundary.inlet_pathogen_classes is None:
+            n_in = boundary.inlet_pathogens + torch.zeros(
+                path.shape[:-1], dtype=path.dtype, device=path.device)
+        else:
+            n_in = torch.as_tensor(boundary.inlet_pathogen_classes,
+                                   dtype=path.dtype, device=path.device)
+        dN = _add_at_first(
+            dN, align_trailing(q_per_v, n_in) * (n_in - path[..., 0]))
+        extra += (dN, dCTcred, dAge, dTOC, dTHM)
+
+    if biofilm is not None:
+        # Planktonic biomass and substrate are bulk species; the wall film
+        # is attached (zone-local). All rates are slow: no operator split.
+        bp = _aligned(params.biofilm, T)
+        x_b, s_b, b_w = (torch.clamp(x, min=0.0) for x in biofilm)
+
+        # colonizable area-to-volume ratio [m2/L]: the thermal model's
+        # lateral + ends area split evenly across zones
+        a_v = align_trailing(
+            params.heat_area_m2 / (params.n_zones * params.zone_volume_L),
+            T)
+        u = align_trailing(params.velocity_scale, T)
+
+        mu_x = biofilm_mod.specific_growth_bulk(s_b, Cl, T, bp)
+        mu_b = biofilm_mod.specific_growth_film(s_b, Cl, T, b_w, bp)
+        kx = biofilm_mod.kill_rate_bulk(Cl, bp)
+        kb = biofilm_mod.kill_rate_film(Cl, bp)
+        det = biofilm_mod.detachment_rate(u, bp)
+
+        # bulk biomass: growth - kill - attachment + sloughed film
+        r_x = mu_x * x_b - kx * x_b - bp.k_att * x_b + det * b_w * a_v
+        # wall film (areal units): growth - kill + attachment - detachment
+        r_b = mu_b * b_w - kb * b_w + bp.k_att * x_b / a_v - det * b_w
+        # substrate: consumed by both compartments at the carbon yield; a
+        # lysis fraction of killed biomass is recycled
+        r_s = -(mu_x * x_b + mu_b * b_w * a_v) / bp.yield_c \
+            + bp.f_lysis * (kx * x_b + kb * b_w * a_v)
+
+        dX = species(x_b, boundary.inlet_bacteria, r_x)
+        dS = species(s_b, boundary.inlet_bdoc, r_s)
+        dB = r_b    # attached: no mixing, no advection, no inlet
+
+        # the film's wall chlorine demand on the residual
+        dCl = dCl - biofilm_mod.wall_demand_rate(Cl, b_w, a_v, bp)
+        extra += (dX, dS, dB)
+
+    return (dpH, dCl, dT) + extra
 
 
 def _cast_like(x, like):
@@ -406,12 +809,8 @@ def _cast_like(x, like):
 def _update_derived(state: ReactorState) -> ReactorState:
     """Recompute the derived quantities, cast to the primary-state dtype
     (NumPy values on the host path, tensors otherwise)."""
-    return ReactorState(
-        time=state.time,
-        pH=state.pH,
-        chlorine=state.chlorine,
-        temperature=state.temperature,
-        flow_rate=state.flow_rate,
+    return replace(
+        state,
         H_concentration=_cast_like(10.0 ** (-state.pH), state.pH),
         density=_cast_like(spatial_mod.water_density(state.temperature),
                            state.pH),
@@ -420,39 +819,92 @@ def _update_derived(state: ReactorState) -> ReactorState:
     )
 
 
-def _enforce_bounds(pH, Cl, T):
-    """Physical bound clipping."""
+def _enforce_bounds(pH, Cl, T, phase=None):
+    """Physical bound clipping. With the phase axis on, the [0, 100]
+    temperature clip widens to [t_min, t_boil + delta_boil]."""
+    if phase is None:
+        t_clip = torch.clip(T, 0.0, 100.0)
+    else:
+        t_clip = torch.minimum(
+            torch.maximum(T, align_trailing(phase.t_min, T)),
+            align_trailing(phase.t_boil + phase.delta_boil, T))
     return (
         torch.clip(pH, 0.0, 14.0),
         torch.clamp(Cl, min=0.0),
-        torch.clip(T, 0.0, 100.0),
+        t_clip,
     )
-
-
-def _reject_extension_params(params: ReactorParams) -> None:
-    for axis in EXTENSION_AXES:
-        if getattr(params, axis) is not None:
-            raise NotImplementedError(
-                f"the {axis} extension axis is not ported to the PyTorch "
-                "package yet")
 
 
 def step(params: ReactorParams, state: ReactorState,
          boundary: BoundaryConditions, dt: float, substeps: int,
          stages: Optional[int] = None) -> ReactorState:
     """Advance the reactor by ``dt`` seconds: ``substeps`` RK4 steps, or
-    s-stage RKC2 steps when ``stages`` is given, then the physical bounds."""
-    _reject_extension_params(params)
+    s-stage RKC2 steps when ``stages`` is given, then the physical bounds,
+    then the two exact operator splits: the UV bank (disinfection) and
+    chloramination (nitrogen)."""
+    axes = [axis for axis in EXTENSION_STATE
+            if getattr(params, axis) is not None
+            and getattr(state, EXTENSION_STATE[axis][0]) is not None]
+    # species tuple: (pH, Cl, T) then each enabled axis's fields in the
+    # order of EXTENSION_STATE
+    y = (state.pH, state.chlorine, state.temperature)
+    spans = {}
+    for axis in axes:
+        names = EXTENSION_STATE[axis]
+        spans[axis] = slice(len(y), len(y) + len(names))
+        y = y + tuple(getattr(state, name) for name in names)
 
     def f(y):
-        return derivatives(params, y[0], y[1], y[2], boundary)
+        return derivatives(params, y[0], y[1], y[2], boundary,
+                           **{axis: y[sl] for axis, sl in spans.items()})
 
-    y = (state.pH, state.chlorine, state.temperature)
     if stages is None:
         out = integrators.integrate_fixed(f, y, dt, substeps)
     else:
         out = integrators.integrate_rkc(f, y, dt, substeps, stages)
-    pH, Cl, T = _enforce_bounds(*out)
+    pH, Cl, T = _enforce_bounds(*out[:3], phase=params.phase)
+    ext = {name: torch.clamp(x, min=0.0)
+           for axis, sl in spans.items()
+           for name, x in zip(EXTENSION_STATE[axis], out[sl])}
+
+    if "disinfection" in spans:
+        # Operator split for the UV bank: exact survival over dt at the
+        # Beer-Lambert average fluence of the stepped water, whose organics
+        # and particles shade the lamps.
+        dp0 = params.disinfection
+        dpar = replace(_aligned(dp0, pH), k_cl=dp0.k_cl, k_uv=dp0.k_uv)
+        tss_tot = torch.sum(ext["tss"], dim=-2) if "particles" in spans \
+            else torch.zeros_like(ext["toc"])
+        a254 = disinfection_mod.absorbance_254(ext["toc"], tss_tot, dpar)
+        e0 = align_trailing(boundary.uv_intensity, pH)
+        e_avg = disinfection_mod.average_fluence(e0, a254, dpar)
+        surv = disinfection_mod.uv_survival(e_avg, dt, dpar)  # [..., P, Z]
+        mask = _last_zone_mask(pH)
+        ext["pathogens"] = ext["pathogens"] \
+            * (1.0 + mask[..., None, :] * (surv - 1.0))
+
+    if "nitrogen" in spans:
+        # Operator split for chloramination (HOCl + NH3 -> NH2Cl, ~60 1/s
+        # at 2 mg/L): the exact second-order extent over dt against the
+        # stepped state. Its H+ release shifts pH through the buffering
+        # chain rule, at the dynamic carbonate when gas is on.
+        x_mol = nitrogen_mod.chloramination_extent(
+            Cl, ext["ammonia"], pH, T, align_trailing(params.chem.Ka_HOCl,
+                                                      pH),
+            _aligned(params.nitrogen, pH), dt)
+        Cl = torch.clamp(Cl - x_mol * nitrogen_mod._CL2_MGL_PER_MOL,
+                         min=0.0)
+        ext["ammonia"] = torch.clamp(
+            ext["ammonia"] - x_mol * nitrogen_mod._N_MGL_PER_MOL, min=0.0)
+        ext["chloramine"] = ext["chloramine"] \
+            + x_mol * nitrogen_mod._CL2_MGL_PER_MOL
+        k_split = params.chem
+        if "gas" in spans:
+            k_split = replace(k_split, C_T_mol=ext["carbonate"] * 1e-3)
+        beta = chem.buffering_capacity(pH, k_split)
+        pH = torch.clip(
+            pH - nitrogen_mod.H_PER_N_CHLORAMINE * x_mol / (beta * LN10),
+            0.0, 14.0)
 
     total_flow = (boundary.inlet_flow_rate + boundary.acid_flow_rate
                   + boundary.chlorine_flow_rate)
@@ -461,9 +913,8 @@ def step(params: ReactorParams, state: ReactorState,
         pH=pH,
         chlorine=Cl,
         temperature=T,
-        flow_rate=torch.as_tensor(total_flow, dtype=pH.dtype,
-                                  device=pH.device)
-        + torch.zeros_like(state.flow_rate),
+        flow_rate=torch.zeros_like(state.flow_rate) + total_flow,
+        **ext,
     )
     return _update_derived(new_state)
 
@@ -540,7 +991,9 @@ def stack_boundary_schedule(boundaries) -> BoundaryConditions:
     out = {}
     for f in fields(BoundaryConditions):
         xs = [getattr(b, f.name) for b in boundaries]
-        if any(isinstance(x, torch.Tensor) for x in xs):
+        if all(x is None for x in xs):
+            out[f.name] = None          # an unset per-class inlet vector
+        elif any(isinstance(x, torch.Tensor) for x in xs):
             out[f.name] = torch.stack([torch.as_tensor(x) for x in xs])
         else:
             out[f.name] = np.stack([np.asarray(x) for x in xs])
@@ -735,6 +1188,16 @@ class IntegratedCSTR:
             "temperature": self.state.temperature,
             "density": self.state.density,
         }
+        # extension species, present only when their axis is enabled
+        for name in ("ammonia", "nitrite", "nitrate", "chloramine",
+                     "oxygen", "carbonate"):
+            v = getattr(self.state, name)
+            if v is not None:
+                arrays[name] = v
+        if self.state.tss is not None:
+            arrays["tss"] = particles_mod.total_solids_mgl(self.state.tss)
+            arrays["turbidity"] = particles_mod.turbidity_ntu(
+                self.state.tss, self.params.particles)
         if parameter not in arrays:
             raise ValueError(f"Unknown parameter: {parameter}")
         return float(arrays[parameter][..., zone_idx])

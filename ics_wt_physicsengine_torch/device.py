@@ -12,6 +12,8 @@ Device and dtype policy of the PyTorch port.
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
@@ -40,3 +42,11 @@ def tensor_from_numpy(value, dtype=None, device=None) -> torch.Tensor:
     dtype = DEFAULT_DTYPE if dtype is None else dtype
     return torch.from_numpy(
         np.array(value, dtype=numpy_dtype(dtype))).to(resolve_device(device))
+
+
+def dataclass_from_numpy(cls, values, dtype=None, device=None):
+    """A dataclass of tensors from a mapping of its field names to NumPy
+    values, each through ``tensor_from_numpy``."""
+    dev = resolve_device(device)
+    return cls(**{f.name: tensor_from_numpy(values[f.name], dtype, dev)
+                  for f in fields(cls)})

@@ -1,6 +1,6 @@
 """
 Monte-Carlo plant batches: parameter-randomized plants as batched tensors
-(port of ``ics_wt_physicsengine_tpu/models/monte_carlo.py``, core axes).
+(port of ``ics_wt_physicsengine_tpu/models/monte_carlo.py``).
 
 A batch of plants is the same ``ReactorParams`` / ``ReactorState`` structure
 with a leading ``[n_plants]`` axis, which the batched physics consumes
@@ -44,6 +44,19 @@ class ParameterRanges:
     # (alk [mg/L CaCO3] = ratio * 50 * C_T [mmol/L]) so every sampled water
     # has a physical pH root.
     alkalinity_ratio: Tuple[float, float] = (0.5, 1.3)
+    # Nitrogen kinetics (sampled only when the base configuration has
+    # enable_nitrogen=True): nitrifier activity varies widely between
+    # sites.
+    nitrogen_ranges: Dict[str, Tuple[float, float]] = field(
+        default_factory=lambda: {
+            "k_nitrif": (1.0, 4.0),        # [mg N/L/day] @ 20 C
+            "k_nitrat": (1.5, 6.0),        # [mg N/L/day]
+            "K_nh": (0.5, 2.0),            # [mg N/L]
+            "k_cm_decay": (0.01, 0.05),    # [1/day]
+        })
+
+# axes whose parameters mix 0-d fields with per-class vectors ([C], [P])
+_CLASS_AXES = ("particles", "disinfection")
 
 
 def make_monte_carlo_batch(base_config: R.ReactorConfiguration,
@@ -57,7 +70,6 @@ def make_monte_carlo_batch(base_config: R.ReactorConfiguration,
     ``device`` (``None``: the CUDA card)."""
     if n_plants < 1:
         raise ValueError(f"n_plants must be >= 1, got {n_plants}")
-    R.reject_extensions(base_config)
     if ranges is None:
         ranges = ParameterRanges()
     rng = np.random.default_rng(seed)
@@ -76,6 +88,14 @@ def make_monte_carlo_batch(base_config: R.ReactorConfiguration,
             fields_[name] = samples[name]
         elif isinstance(value, float):
             fields_[name] = np.full(n_plants, value, np.float64)
+    if base_config.enable_nitrogen:
+        # per-plant kinetics; explicit overrides in nitrogen_kinetics stay
+        # fixed across the batch
+        n_kw = dict(base_config.nitrogen_kinetics or {})
+        for name, (lo, hi) in ranges.nitrogen_ranges.items():
+            if name not in n_kw:
+                n_kw[name] = rng.uniform(lo, hi, n_plants)
+        fields_["nitrogen_kinetics"] = n_kw
     config = R.ReactorConfiguration(**fields_)
 
     np_dtype = numpy_dtype(dtype)
@@ -85,13 +105,27 @@ def make_monte_carlo_batch(base_config: R.ReactorConfiguration,
     # Fields that depend only on constants are still 0-d: give every field
     # the [n_plants] axis.
     def batched(x):
+        if x is None:
+            return None
         x = np.asarray(x)
         return np.broadcast_to(x, (n_plants,)).copy() if x.ndim == 0 else x
 
-    params = {k: (v if k == "n_zones" else
-                  {kk: batched(vv) for kk, vv in v.items()} if k == "chem"
-                  else batched(v))
-              for k, v in params.items()}
+    # The particle and disinfection fields mix 0-d values with [C] / [P]
+    # class vectors, so every one of them gets a leading [n_plants] axis:
+    # a shape test cannot tell [C] from [n_plants] when n_plants == C.
+    def class_batched(x):
+        x = np.asarray(x)
+        return np.broadcast_to(x, (n_plants,) + x.shape).copy()
+
+    def batch_field(name, value):
+        if name == "n_zones" or value is None:
+            return value
+        if isinstance(value, dict):
+            each = class_batched if name in _CLASS_AXES else batched
+            return {k: each(v) for k, v in value.items()}
+        return batched(value)
+
+    params = {k: batch_field(k, v) for k, v in params.items()}
     state = {k: batched(v) for k, v in state.items()}
     return (params_from_numpy(params, dtype=dtype, device=device),
             state_from_numpy(state, dtype=dtype, device=device))

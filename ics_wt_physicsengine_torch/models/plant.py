@@ -2,18 +2,19 @@
 Integrated plant model: physics + the full sensor suite in one step (port
 of ``ics_wt_physicsengine_tpu/models/plant.py``).
 
-The reactor advances dt, then all seven instruments read the new state
-through their carried pipelines (delays, drift, fouling, faults). Every
-function is natively batched: a plant batch is the same ``PlantParams`` /
-``PlantState`` structure with leading ``[n_plants]`` axes.
+The reactor advances dt, then the seven base instruments (and the ammonia,
+oxygen and turbidity instruments of the nitrogen, gas and particle axes when
+those are on) read the new state through their carried pipelines (delays,
+drift, fouling, faults). Every function is natively batched: a plant batch
+is the same ``PlantParams`` / ``PlantState`` structure with leading
+``[n_plants]`` axes.
 
 Randomness is explicit. The sensor carries hold no generator state: a step
 takes pre-drawn ``rand=`` or a ``torch.Generator``, and the fused kernel
 takes an integer ``seed``.
 
-The three extension instruments (ammonia, oxygen, turbidity) are not ported
-yet: their fields stay ``None`` and a configuration that enables their axis
-raises ``NotImplementedError``.
+A plant with an extension axis runs the ``plant_step`` loop: the fused
+plant kernel refuses the axes (``ops.fused_plant.unsupported_reason``).
 """
 
 from __future__ import annotations
@@ -24,13 +25,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ics_wt_physicsengine_torch.core import particles as PC
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.device import DEFAULT_DTYPE, resolve_device
+from ics_wt_physicsengine_torch.sensors import ammonia as SA
 from ics_wt_physicsengine_torch.sensors import base as SB
 from ics_wt_physicsengine_torch.sensors import chlorine as SC
 from ics_wt_physicsengine_torch.sensors import flow as SF
+from ics_wt_physicsengine_torch.sensors import oxygen as SO
 from ics_wt_physicsengine_torch.sensors import ph as SP
 from ics_wt_physicsengine_torch.sensors import temperature as ST
+from ics_wt_physicsengine_torch.sensors import turbidity as STB
 from ics_wt_physicsengine_torch.sensors.types import (InstallationQuality,
                                                       SampleLine)
 from ics_wt_physicsengine_torch.utils.dispatch import map_tensors
@@ -46,10 +51,11 @@ class PlantParams:
     flow_main: SF.FlowSensorParams
     temp_inlet: ST.TemperatureSensorParams
     temp_outlet: ST.TemperatureSensorParams
-    # extension instruments, not ported yet
-    ammonia_outlet: Optional[object] = None
-    oxygen_outlet: Optional[object] = None
-    turbidity_outlet: Optional[object] = None
+    # the extension axes' instruments (None unless enable_nitrogen,
+    # enable_gas, enable_particles)
+    ammonia_outlet: Optional[SA.AmmoniaSensorParams] = None
+    oxygen_outlet: Optional[SO.OxygenSensorParams] = None
+    turbidity_outlet: Optional[STB.TurbiditySensorParams] = None
 
 
 @dataclass
@@ -62,9 +68,9 @@ class PlantState:
     flow_main: SF.FlowSensorCarry
     temp_inlet: ST.TemperatureSensorCarry
     temp_outlet: ST.TemperatureSensorCarry
-    ammonia_outlet: Optional[object] = None
-    oxygen_outlet: Optional[object] = None
-    turbidity_outlet: Optional[object] = None
+    ammonia_outlet: Optional[SA.AmmoniaSensorCarry] = None
+    oxygen_outlet: Optional[SO.OxygenSensorCarry] = None
+    turbidity_outlet: Optional[STB.TurbiditySensorCarry] = None
 
 
 # (reading name, PlantParams/PlantState attribute) in reading order
@@ -78,15 +84,16 @@ SENSOR_NAMES = (("pH_inlet", "ph_inlet"), ("pH_outlet", "ph_outlet"),
 def make_plant(config: R.ReactorConfiguration, dtype=DEFAULT_DTYPE,
                warmed_up: bool = True, t0: float = 0.0, device=None
                ) -> Tuple[PlantParams, PlantState]:
-    """Build the canonical 7-sensor plant on ``device`` (``None``: the CUDA
-    card).
+    """Build the canonical plant on ``device`` (``None``: the CUDA card):
+    seven base instruments, plus an outlet ammonia ISE, optical DO probe
+    and nephelometer when the nitrogen, gas and particle axes are on.
 
     ``warmed_up=True`` backdates power-on so instruments read immediately
     (otherwise the first 1800 s of readings are warm-up NaN). ``t0`` anchors
     the warm start: calibration age and warm-up count from it."""
     dev = resolve_device(device)
     kw = dict(dtype=dtype, device=dev)
-    reactor_params = R.make_params(config, **kw)   # rejects extension axes
+    reactor_params = R.make_params(config, **kw)
 
     good_installation = InstallationQuality(
         flow_velocity=0.5, air_bubble_frequency=0.0, grounding_quality=0.9,
@@ -115,11 +122,24 @@ def make_plant(config: R.ReactorConfiguration, dtype=DEFAULT_DTYPE,
                                          installation=good_installation,
                                          **kw)
 
+    am_p = ox_p = tb_p = None
+    if config.enable_nitrogen:
+        am_p = SA.make_ammonia_params(zone_index=-1,
+                                      installation=good_installation, **kw)
+    if config.enable_gas:
+        ox_p = SO.make_oxygen_params(zone_index=-1, sensor_type=SO.OPTICAL,
+                                     installation=good_installation, **kw)
+    if config.enable_particles:
+        tb_p = STB.make_turbidity_params(zone_index=-1,
+                                         installation=good_installation,
+                                         **kw)
+
     params = PlantParams(
         reactor=reactor_params,
         ph_inlet=ph_in_p, ph_outlet=ph_out_p,
         chlorine_inlet=cl_in_p, chlorine_outlet=cl_out_p,
-        flow_main=fl_p, temp_inlet=t_in_p, temp_outlet=t_out_p)
+        flow_main=fl_p, temp_inlet=t_in_p, temp_outlet=t_out_p,
+        ammonia_outlet=am_p, oxygen_outlet=ox_p, turbidity_outlet=tb_p)
 
     def backdate(carry, base_params):
         if not warmed_up:
@@ -144,7 +164,13 @@ def make_plant(config: R.ReactorConfiguration, dtype=DEFAULT_DTYPE,
         temp_inlet=backdate(ST.make_temperature_carry(t_in_p, **kw),
                             t_in_p.base),
         temp_outlet=backdate(ST.make_temperature_carry(t_out_p, **kw),
-                             t_out_p.base))
+                             t_out_p.base),
+        ammonia_outlet=None if am_p is None else backdate(
+            SA.make_ammonia_carry(am_p, **kw), am_p.base),
+        oxygen_outlet=None if ox_p is None else backdate(
+            SO.make_oxygen_carry(ox_p, **kw), ox_p.base),
+        turbidity_outlet=None if tb_p is None else backdate(
+            STB.make_turbidity_carry(tb_p, **kw), tb_p.base))
     return params, state
 
 
@@ -156,8 +182,8 @@ def plant_step(params: PlantParams, plant: PlantState,
                boundary: R.BoundaryConditions, dt: float, substeps: int,
                stages=None, rand=None, delayed=None, generator=None
                ) -> Tuple[PlantState, Dict[str, SB.SensorOutput]]:
-    """Advance physics by dt, then read all seven instruments; one plant or
-    a batch. ``stages`` selects the RKC2 integrator for the physics.
+    """Advance physics by dt, then read every instrument; one plant or a
+    batch. ``stages`` selects the RKC2 integrator for the physics.
     ``rand``: optional ``{sensor_name: (normals, uniforms)}`` supplying
     every instrument's randomness (the sensor modules'
     N_NORMALS/N_UNIFORMS layouts); a sensor it does not name draws from
@@ -173,8 +199,8 @@ def plant_step(params: PlantParams, plant: PlantState,
 def _read_all(params: PlantParams, state: R.ReactorState, plant: PlantState,
               rand=None, delayed=None, generator=None
               ) -> Tuple[PlantState, Dict[str, SB.SensorOutput]]:
-    """Read all seven instruments against an already-stepped reactor state
-    (the sensor half of ``plant_step``)."""
+    """Read every instrument against an already-stepped reactor state (the
+    sensor half of ``plant_step``)."""
     t = state.time
     rand = rand or {}
     delayed = delayed or {}
@@ -186,11 +212,13 @@ def _read_all(params: PlantParams, state: R.ReactorState, plant: PlantState,
             delayed_true=delayed.get(name), generator=generator)
 
     def chlorine(name, p, c):
-        # total-chlorine sensors respond to free + combined; no ported
-        # state carries a combined species yet
+        # total-chlorine sensors respond to free + combined; the combined
+        # (chloramine) species exists only under the nitrogen chemistry
+        combined = None if state.chloramine is None \
+            else _zone(state.chloramine, p.zone_index)
         return SC.chlorine_read(
             p, c, _zone(state.chlorine, p.zone_index),
-            _zone(state.pH, p.zone_index), t, combined_zone=None,
+            _zone(state.pH, p.zone_index), t, combined_zone=combined,
             rand=rand.get(name), generator=generator)
 
     def temperature(name, p, c):
@@ -213,14 +241,40 @@ def _read_all(params: PlantParams, state: R.ReactorState, plant: PlantState,
     t_out_c, t_out = temperature("temp_outlet", params.temp_outlet,
                                  plant.temp_outlet)
 
+    extra = {}
+    am_c, ox_c, tb_c = (plant.ammonia_outlet, plant.oxygen_outlet,
+                        plant.turbidity_outlet)
+    ap = params.ammonia_outlet
+    if ap is not None and state.ammonia is not None:
+        am_c, extra["ammonia_outlet"] = SA.ammonia_read(
+            ap, am_c, _zone(state.ammonia, ap.zone_index),
+            _zone(state.pH, ap.zone_index),
+            _zone(state.temperature, ap.zone_index), t,
+            rand=rand.get("ammonia_outlet"), generator=generator)
+    op = params.oxygen_outlet
+    if op is not None and state.oxygen is not None:
+        ox_c, extra["oxygen_outlet"] = SO.oxygen_read(
+            op, ox_c, _zone(state.oxygen, op.zone_index),
+            _zone(state.temperature, op.zone_index), state.flow_rate, t,
+            rand=rand.get("oxygen_outlet"), generator=generator)
+    tp = params.turbidity_outlet
+    if tp is not None and state.tss is not None:
+        true_ntu = PC.turbidity_ntu_tap(_zone(state.tss, tp.zone_index),
+                                        params.reactor.particles)
+        tb_c, extra["turbidity_outlet"] = STB.turbidity_read(
+            tp, tb_c, true_ntu, t, rand=rand.get("turbidity_outlet"),
+            generator=generator)
+
     new_plant = PlantState(
         reactor=state, ph_inlet=ph_in_c, ph_outlet=ph_out_c,
         chlorine_inlet=cl_in_c, chlorine_outlet=cl_out_c, flow_main=fl_c,
-        temp_inlet=t_in_c, temp_outlet=t_out_c)
+        temp_inlet=t_in_c, temp_outlet=t_out_c, ammonia_outlet=am_c,
+        oxygen_outlet=ox_c, turbidity_outlet=tb_c)
     readings = {
         "pH_inlet": ph_in, "pH_outlet": ph_out,
         "chlorine_inlet": cl_in, "chlorine_outlet": cl_out,
         "flow_main": fl, "temp_inlet": t_in, "temp_outlet": t_out,
+        **extra,
     }
     return new_plant, readings
 
@@ -270,7 +324,7 @@ def plant_rollout_scheduled(params: PlantParams, plant: PlantState,
                             substeps: int, record: bool = True,
                             stages=None, generator=None):
     """Loop ``plant_step`` over a time-varying boundary schedule (see
-    ``core.reactor.rollout_scheduled``): physics + all seven instruments
+    ``core.reactor.rollout_scheduled``): physics + every instrument
     under scripted forcing."""
     columns, n_steps = _normalize_schedule(schedule,
                                            plant.reactor.pH.device)
@@ -382,8 +436,9 @@ _TOT_U = sum(u for _, _, u in _RAND_LAYOUT)
 
 
 def draw_packed_rand(generator, batch_shape, dtype, device):
-    """All seven instruments' per-read randomness in two generates from one
-    generator; every element is an independent standard draw. Returns the
+    """The seven base instruments' per-read randomness in two generates
+    from one generator; every element is an independent standard draw (the
+    extension instruments draw from the step's ``generator``). Returns the
     ``rand=`` dict consumed by ``plant_step``/``_read_all``."""
     batch_shape = tuple(batch_shape)
     normals = torch.randn(batch_shape + (_TOT_N,), generator=generator,
@@ -457,6 +512,33 @@ def config2_stratified_20_zone() -> R.ReactorConfiguration:
     temperature-dependent kinetics."""
     return R.ReactorConfiguration(n_zones=20,
                                   enable_thermal_stratification=True)
+
+
+def full_chemistry_config(n_zones: int = 20) -> R.ReactorConfiguration:
+    """All six extension axes at once, as the JAX package's
+    ``bench.py::bench_full_chemistry`` runs them: 22 fields per zone (3
+    core, 4 nitrogen, 2 gas, 3 particle classes + sludge, 3 pathogen
+    classes + CT/age/TOC/THM, bacteria/BDOC/wall film), the phase axis
+    riding the temperature."""
+    return R.ReactorConfiguration(
+        n_zones=n_zones, enable_nitrogen=True, enable_gas=True,
+        enable_particles=True, initial_ammonia=1.0, initial_tss=20.0,
+        enable_disinfection=True, initial_pathogens=1e4,
+        enable_biofilm=True, initial_bacteria=1e-3, initial_bdoc=0.5,
+        enable_phase=True)
+
+
+def full_chemistry_boundary() -> R.BoundaryConditions:
+    """``bench_full_chemistry``'s forcing: the UV bank lit, coagulant and
+    filtration on, aeration, and a cold windy sky driving evaporation."""
+    return R.BoundaryConditions(
+        inlet_flow_rate=5.0, inlet_pH=7.5, inlet_chlorine=0.3,
+        inlet_ammonia=1.0, aeration_kla=1e-3, inlet_tss=20.0,
+        coagulant_dose=20.0, filter_flow_rate=10.0,
+        inlet_pathogens=1e4, uv_intensity=10.0,
+        inlet_bacteria=1e-3, inlet_bdoc=0.5,
+        ambient_temperature=2.0, ambient_humidity=0.4, wind_speed=3.0,
+        heat_loss_coefficient=100.0)
 
 
 def config3_full_sensors(dtype=DEFAULT_DTYPE, device=None):

@@ -360,7 +360,7 @@ def b3_constant_schedule_equals_constant(n_zones, n_plants, device, *,
     substeps, stages = plant_plan(n_zones, integrator)
     const = R.BoundaryConditions(**{
         f.name: np.full(n_steps, getattr(BC, f.name))
-        for f in dataclasses.fields(BC)})
+        for f in dataclasses.fields(BC) if getattr(BC, f.name) is not None})
     kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
               record_every=4, seed=5)
     a = _fused(FP.plant_kernel, params, plant, BC, **kw)

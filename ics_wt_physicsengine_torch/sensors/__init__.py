@@ -1,8 +1,8 @@
 """The instrument suite: pure transforms on batched tensors (the base
-pipeline ``base`` and the pH, chlorine, flow and temperature overlays, plus
-the ``electrical`` transmission stage), the reference simulator's sensor
-classes over them (``wrappers``), and the suite factory of the canonical
-seven-sensor plant."""
+pipeline ``base``; the pH, chlorine, flow and temperature overlays; the
+ammonia, oxygen and turbidity overlays of the extension axes; the
+``electrical`` transmission stage), the reference simulator's sensor classes
+over them (``wrappers``), and the suite factory of the canonical plant."""
 
 from typing import Optional
 
@@ -31,11 +31,23 @@ from ics_wt_physicsengine_torch.sensors.electrical import (  # noqa: F401
     make_electrical_params,
 )
 from ics_wt_physicsengine_torch.sensors.wrappers import (  # noqa: F401
+    AmmoniaSensor,
     BaseSensor,
     ChlorineSensor,
     FlowSensor,
+    OxygenSensor,
     TemperatureSensor,
+    TurbiditySensor,
     pHSensor,
+)
+from ics_wt_physicsengine_torch.sensors.ammonia import (  # noqa: F401
+    validate_ammonia_sensor,
+)
+from ics_wt_physicsengine_torch.sensors.oxygen import (  # noqa: F401
+    validate_oxygen_sensor,
+)
+from ics_wt_physicsengine_torch.sensors.turbidity import (  # noqa: F401
+    validate_turbidity_sensor,
 )
 from ics_wt_physicsengine_torch.sensors.validation import (  # noqa: F401
     run_all_sensor_validations,
@@ -46,6 +58,7 @@ from ics_wt_physicsengine_torch.sensors.validation import (  # noqa: F401
 )
 from ics_wt_physicsengine_torch.sensors import chlorine as _chlorine
 from ics_wt_physicsengine_torch.sensors import flow as _flow
+from ics_wt_physicsengine_torch.sensors import oxygen as _oxygen
 from ics_wt_physicsengine_torch.sensors import temperature as _temperature
 
 
@@ -72,10 +85,9 @@ class TemperatureSensorType:
     THERMOCOUPLE_J = _temperature.THERMOCOUPLE_J
 
 
-# extension axis -> the instrument the JAX package's suite adds for it
-_EXTENSION_INSTRUMENTS = {"enable_nitrogen": "ammonia_outlet",
-                          "enable_gas": "oxygen_outlet",
-                          "enable_particles": "turbidity_outlet"}
+class OxygenSensorType:
+    OPTICAL = _oxygen.OPTICAL
+    CLARK = _oxygen.CLARK
 
 
 def _suite_installation() -> InstallationQuality:
@@ -139,13 +151,23 @@ def _base_suite(reactor_config, seed: Optional[int] = None, dtype=None,
 
 def create_realistic_sensor_suite(reactor_config, seed: Optional[int] = None,
                                   dtype=None, device=None):
-    """The canonical seven sensor objects for ``reactor_config`` on
-    ``device`` (``None``: the CUDA card). A configuration that enables the
-    nitrogen, gas or particle axis would add an instrument that is not
-    ported yet, and raises ``NotImplementedError``."""
-    for flag, instrument in _EXTENSION_INSTRUMENTS.items():
-        if getattr(reactor_config, flag, False):
-            raise NotImplementedError(
-                f"{flag}: the {instrument} instrument is not ported to the "
-                "PyTorch package yet")
-    return _base_suite(reactor_config, seed, dtype=dtype, device=device)
+    """The canonical sensor objects for ``reactor_config`` on ``device``
+    (``None``: the CUDA card): the seven base instruments, plus an outlet
+    ammonia ISE with the nitrogen axis, an optical DO probe with the gas
+    axis and a nephelometer with the particle axis."""
+    suite = _base_suite(reactor_config, seed, dtype=dtype, device=device)
+    common = dict(zone_index=-1, installation=_suite_installation(),
+                  device=device)
+    if dtype is not None:
+        common["dtype"] = dtype
+    if getattr(reactor_config, "enable_nitrogen", False):
+        suite["ammonia_outlet"] = AmmoniaSensor(
+            name="ammonia_outlet", seed=_suite_seed(seed, 7), **common)
+    if getattr(reactor_config, "enable_gas", False):
+        suite["oxygen_outlet"] = OxygenSensor(
+            name="oxygen_outlet", sensor_type=OxygenSensorType.OPTICAL,
+            seed=_suite_seed(seed, 8), **common)
+    if getattr(reactor_config, "enable_particles", False):
+        suite["turbidity_outlet"] = TurbiditySensor(
+            name="turbidity_outlet", seed=_suite_seed(seed, 9), **common)
+    return suite

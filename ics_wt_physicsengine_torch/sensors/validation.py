@@ -1,7 +1,7 @@
 """
 Sensor validation suites (port of
 ``ics_wt_physicsengine_tpu/sensors/validation.py``; the ammonia, oxygen and
-turbidity suites wait for their instruments).
+turbidity suites live beside their instruments).
 
 Each follows the reference simulator's strategy: a duck-typed mock reactor
 state, a burst of reads, and envelope/behaviour checks. Reads are
@@ -142,14 +142,23 @@ def validate_temperature_sensor(device=None):
 
 
 def run_all_sensor_validations(device=None):
-    """The four ported suites on ``device`` (``None``: the CUDA card). The
-    JAX package also runs its ammonia, oxygen and turbidity suites; those
-    instruments are not ported yet and this function does not vouch for
-    them."""
+    """All seven instrument suites on ``device`` (``None``: the CUDA
+    card)."""
+    from ics_wt_physicsengine_torch.sensors.ammonia import (
+        validate_ammonia_sensor)
+    from ics_wt_physicsengine_torch.sensors.oxygen import (
+        validate_oxygen_sensor)
+    from ics_wt_physicsengine_torch.sensors.turbidity import (
+        validate_turbidity_sensor)
+
     device = resolve_device(device)
     validate_pH_sensor(device)
     validate_chlorine_sensor(device)
     validate_flow_sensor(device)
     validate_temperature_sensor(device)
-    print(f"ALL PORTED SENSOR VALIDATIONS PASSED on {device} "
-          "(ammonia, oxygen, turbidity: not ported)")
+    for name, suite in (("ammonia", validate_ammonia_sensor),
+                        ("oxygen", validate_oxygen_sensor),
+                        ("turbidity", validate_turbidity_sensor)):
+        if not suite(device=device):
+            raise RuntimeError(f"{name} sensor validation failed")
+    print(f"ALL SENSOR VALIDATIONS PASSED on {device}")

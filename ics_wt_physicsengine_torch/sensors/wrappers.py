@@ -1,18 +1,20 @@
 """
 The reference simulator's sensor classes over the functional core (port of
-``ics_wt_physicsengine_tpu/sensors/wrappers.py``; the ammonia, oxygen and
-turbidity classes wait for their instruments).
+``ics_wt_physicsengine_tpu/sensors/wrappers.py``), and the ammonia, oxygen
+and turbidity instruments of the extension axes in the same shell.
 
 These classes present the ``BaseSensor`` surface (``read`` / ``calibrate``
 / ``get_statistics`` / ``reset`` and the per-type extras) while all
 measurement math runs through the pure transforms in ph.py / chlorine.py /
-flow.py / temperature.py on the sensor's device. The wrapper owns host-side
-concerns only: the bounded reading and calibration history,
-monotonic-time enforcement, duck-typed state access, and enum conversion.
+flow.py / temperature.py / ammonia.py / oxygen.py / turbidity.py on the
+sensor's device. The wrapper owns host-side concerns only: the bounded
+reading and calibration history, monotonic-time enforcement, duck-typed
+state access, and enum conversion.
 
 The duck-typed state contract is kept: ``read`` accepts any object with the
 arrays the sensor needs (``.pH``, ``.chlorine``, ``.temperature``,
-``.flow_rate``), tensors or NumPy values.
+``.flow_rate``, ``.ammonia``, ``.oxygen``, ``.tss``), tensors or NumPy
+values.
 
 Each sensor takes ``device`` (``None``: the CUDA card) and ``seed``: its
 draws come from a ``torch.Generator`` on that device (``seed=None`` takes
@@ -36,12 +38,16 @@ import torch
 
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE, resolve_device,
                                                tensor_from_numpy)
+from ics_wt_physicsengine_torch.core import particles as PC
+from ics_wt_physicsengine_torch.sensors import ammonia as AM
 from ics_wt_physicsengine_torch.sensors import base as B
 from ics_wt_physicsengine_torch.sensors import chlorine as CL
 from ics_wt_physicsengine_torch.sensors import electrical as E
 from ics_wt_physicsengine_torch.sensors import flow as FL
+from ics_wt_physicsengine_torch.sensors import oxygen as OX
 from ics_wt_physicsengine_torch.sensors import ph as PH
 from ics_wt_physicsengine_torch.sensors import temperature as TP
+from ics_wt_physicsengine_torch.sensors import turbidity as TB
 from ics_wt_physicsengine_torch.sensors.types import (
     FAULT_FROM_CODE,
     STATUS_FROM_CODE,
@@ -561,3 +567,179 @@ class TemperatureSensor(_SensorShell):
 
     def _extract_inputs(self, reactor_state):
         return (_zone(reactor_state.temperature, self.zone_index),)
+
+
+class AmmoniaSensor(_SensorShell):
+    """Total-ammonia-nitrogen sensor (ISE / gas-sensing membrane), the
+    instrument of the nitrogen chemistry."""
+
+    def __init__(self, name: str, zone_index: int = 0,
+                 sensor_type: str = AM.ISE,
+                 precision: Optional[float] = None,
+                 response_time: Optional[float] = None,
+                 drift_rate: float = 0.02 / 24.0,
+                 selectivity_potassium: float = 0.1,
+                 potassium_mgL: float = 2.0,
+                 max_history_length: int = 1000,
+                 sample_line: Optional[SampleLine] = None,
+                 installation: Optional[InstallationQuality] = None,
+                 calibration_validity_hours: float = 24.0,
+                 seed: Optional[int] = None, dtype=DEFAULT_DTYPE,
+                 device=None):
+        dev = resolve_device(device)
+        if hasattr(sensor_type, "value"):
+            sensor_type = sensor_type.value
+        self.zone_index = zone_index
+        self.sensor_type = sensor_type
+        params = AM.make_ammonia_params(
+            zone_index=zone_index, sensor_type=sensor_type,
+            precision=precision, response_time=response_time,
+            drift_rate=drift_rate,
+            selectivity_potassium=selectivity_potassium,
+            potassium_mgL=potassium_mgL, sample_line=sample_line,
+            installation=installation, dtype=dtype, device=dev)
+        carry = AM.make_ammonia_carry(params, dtype=dtype, device=dev)
+        super().__init__(name, params, carry, AM.ammonia_read,
+                         max_history_length, calibration_validity_hours,
+                         seed)
+
+    def _fresh_carry(self):
+        return AM.make_ammonia_carry(self.params, dtype=self._dtype,
+                                     device=self.device)
+
+    def _extract_inputs(self, reactor_state):
+        tan = _zone(reactor_state.ammonia, self.zone_index)
+        ph = (_zone(reactor_state.pH, self.zone_index)
+              if hasattr(reactor_state, "pH") else 7.0)
+        temp = (_zone(reactor_state.temperature, self.zone_index)
+                if hasattr(reactor_state, "temperature") else 20.0)
+        return tan, ph, temp
+
+    @property
+    def membrane_age_days(self):
+        return float(self.carry.membrane_age_days)
+
+    @property
+    def slope_percentage(self):
+        return float(self.carry.slope_percentage)
+
+
+class OxygenSensor(_SensorShell):
+    """Dissolved-oxygen sensor (optical luminescent / Clark amperometric),
+    the instrument of the gas exchange."""
+
+    def __init__(self, name: str, zone_index: int = 0,
+                 sensor_type: str = OX.OPTICAL,
+                 precision: Optional[float] = None,
+                 response_time: Optional[float] = None,
+                 drift_rate: float = 0.01 / 24.0,
+                 cal_temperature: float = 20.0,
+                 max_history_length: int = 1000,
+                 sample_line: Optional[SampleLine] = None,
+                 installation: Optional[InstallationQuality] = None,
+                 calibration_validity_hours: float = 24.0 * 30,
+                 seed: Optional[int] = None, dtype=DEFAULT_DTYPE,
+                 device=None):
+        dev = resolve_device(device)
+        if hasattr(sensor_type, "value"):
+            sensor_type = sensor_type.value
+        self.zone_index = zone_index
+        self.sensor_type = sensor_type
+        params = OX.make_oxygen_params(
+            zone_index=zone_index, sensor_type=sensor_type,
+            precision=precision, response_time=response_time,
+            drift_rate=drift_rate, cal_temperature=cal_temperature,
+            sample_line=sample_line, installation=installation,
+            dtype=dtype, device=dev)
+        carry = OX.make_oxygen_carry(params, dtype=dtype, device=dev)
+        super().__init__(name, params, carry, OX.oxygen_read,
+                         max_history_length, calibration_validity_hours,
+                         seed)
+
+    def _fresh_carry(self):
+        return OX.make_oxygen_carry(self.params, dtype=self._dtype,
+                                    device=self.device)
+
+    def _extract_inputs(self, reactor_state):
+        o2 = _zone(reactor_state.oxygen, self.zone_index)
+        temp = (_zone(reactor_state.temperature, self.zone_index)
+                if hasattr(reactor_state, "temperature") else 20.0)
+        flow = (reactor_state.flow_rate
+                if hasattr(reactor_state, "flow_rate") else 1.0)
+        return o2, temp, flow
+
+    def replace_cap(self) -> None:
+        """Replace the sensing cap (optical) / membrane and electrolyte
+        (Clark): resets all consumable aging."""
+        with self._state_lock:
+            self.carry = OX.replace_cap(self.carry)
+
+    @property
+    def cap_age_days(self):
+        return float(self.carry.cap_age_days)
+
+    @property
+    def slope_percentage(self):
+        return float(self.carry.slope_percentage)
+
+    @property
+    def membrane_fouling(self):
+        return float(self.carry.membrane_fouling)
+
+    @property
+    def electrolyte(self):
+        return float(self.carry.electrolyte)
+
+
+class TurbiditySensor(_SensorShell):
+    """Nephelometric turbidity sensor (ISO 7027 90-degree scatter), the
+    instrument of the particle dynamics. It is size-blind: its true value
+    is the class-weighted NTU of the state's ``tss`` classes under
+    ``ntu_weights`` (default: the particle model's weights)."""
+
+    def __init__(self, name: str, zone_index: int = 0,
+                 precision: Optional[float] = None,
+                 response_time: Optional[float] = None,
+                 drift_rate: float = 0.005 / 24.0,
+                 ntu_weights=None,
+                 max_history_length: int = 1000,
+                 sample_line: Optional[SampleLine] = None,
+                 installation: Optional[InstallationQuality] = None,
+                 calibration_validity_hours: float = 24.0 * 90,
+                 seed: Optional[int] = None, dtype=DEFAULT_DTYPE,
+                 device=None):
+        dev = resolve_device(device)
+        self.zone_index = zone_index
+        if ntu_weights is None:
+            ntu_weights = PC.DEFAULT_NTU_PER_MGL
+        self._ntu_weights = np.asarray(ntu_weights, float)
+        params = TB.make_turbidity_params(
+            zone_index=zone_index, precision=precision,
+            response_time=response_time, drift_rate=drift_rate,
+            sample_line=sample_line, installation=installation,
+            dtype=dtype, device=dev)
+        carry = TB.make_turbidity_carry(params, dtype=dtype, device=dev)
+        super().__init__(name, params, carry, TB.turbidity_read,
+                         max_history_length, calibration_validity_hours,
+                         seed)
+
+    def _fresh_carry(self):
+        return TB.make_turbidity_carry(self.params, dtype=self._dtype,
+                                       device=self.device)
+
+    def _extract_inputs(self, reactor_state):
+        col = _zone(reactor_state.tss, self.zone_index)      # [..., C]
+        if isinstance(col, torch.Tensor):
+            weights = torch.as_tensor(self._ntu_weights, dtype=col.dtype,
+                                      device=col.device)
+            return (torch.sum(weights * col, dim=-1),)
+        return (float(np.sum(self._ntu_weights * col, axis=-1)),)
+
+    def wipe_window(self) -> None:
+        """Run the mechanical wiper (clears the window-fouling bias)."""
+        with self._state_lock:
+            self.carry = TB.wipe_window(self.carry)
+
+    @property
+    def window_fouling_ntu(self):
+        return float(self.carry.window_fouling_ntu)

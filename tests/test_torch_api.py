@@ -70,12 +70,14 @@ def test_core_validation_suite_runs_on_the_cpu(suite, capsys):
 
 
 def test_run_all_validations_and_the_module_entry_point(capsys):
+    """The five core suites, then the six extension-axis suites."""
     tcore.run_all_validations("cpu")
     out = capsys.readouterr().out
     assert out.count("validations passed") == 5
-    assert "extension-axis suites: not ported" in out
+    assert out.count("validation: ALL PASS") == 6
+    assert "FAIL:" not in out
     core_main(["--device", "cpu"])
-    assert "ALL CORE PHYSICS VALIDATIONS PASSED" in capsys.readouterr().out
+    assert "ALL PHYSICS VALIDATIONS PASSED" in capsys.readouterr().out
 
 
 def test_validations_want_the_card_unless_told_otherwise():
@@ -464,36 +466,15 @@ def test_print_diagnostics_equals_jax_apart_from_the_banner(capsys):
 # JAX-package names without a counterpart, each with where it waits.
 WAITS = {
     "core": {
-        "queue A item 6 (core/network.py)": {
+        "queue A item 6g (core/network.py)": {
             "NetworkState", "NetworkTopology", "make_network", "network_step",
             "rollout_network", "rollout_network_scheduled",
             "topology_arrays"},
-        "queue A item 6 (extension axes)": {
-            "NitrogenParams", "make_nitrogen_params", "total_nitrogen_mgN",
-            "validate_nitrogen", "GasParams", "co2_henry_constant",
-            "make_gas_params", "oxygen_saturation", "validate_gas",
-            "ParticleParams", "make_particle_params", "stokes_velocity",
-            "total_solids_mgl", "turbidity_ntu", "turbidity_ntu_tap",
-            "validate_particles", "DisinfectionParams", "PATHOGEN_NAMES",
-            "absorbance_254", "log_inactivation", "make_disinfection_params",
-            "uvt_percent", "validate_disinfection", "BiofilmParams",
-            "hpc_cfu_per_ml", "make_biofilm_params", "total_biomass_carbon",
-            "validate_biofilm", "PhaseParams", "enthalpy",
-            "evaporation_flux", "ice_fraction", "make_phase_params",
-            "saturation_vapor_pressure", "validate_phase"},
     },
     "sensors": {
-        "queue A item 6 (extension instruments)": {
-            "AmmoniaSensor", "OxygenSensor", "TurbiditySensor",
-            "OxygenSensorType", "validate_ammonia_sensor",
-            "validate_oxygen_sensor", "validate_turbidity_sensor"},
-        "queue A item 6 (sensors/sampleline.py)": {
+        "queue A item 6g (sensors/sampleline.py)": {
             "LineThermalConfig", "PhysicalSampleLine",
             "validate_sample_line"},
-    },
-    "sensors.wrappers": {
-        "queue A item 6 (extension instruments)": {
-            "AmmoniaSensor", "OxygenSensor", "TurbiditySensor"},
     },
     "sensors.validation": {
         "kept once, in sensors/__init__.py": {
@@ -505,8 +486,11 @@ WAITS = {
     },
 }
 PORTED = ("core", "core.thermodynamics", "core.chemistry", "core.transport",
-          "core.spatial", "core.reactor", "sensors", "sensors.electrical",
-          "sensors.wrappers", "sensors.validation", "ops.ph_solver")
+          "core.spatial", "core.reactor", "core.nitrogen", "core.gas",
+          "core.particles", "core.disinfection", "core.biofilm",
+          "core.phase", "sensors", "sensors.electrical", "sensors.wrappers",
+          "sensors.validation", "sensors.ammonia", "sensors.oxygen",
+          "sensors.turbidity", "ops.ph_solver")
 
 
 def _public_names(module, package: bool):

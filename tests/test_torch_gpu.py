@@ -1,6 +1,6 @@
 """Kernels B1, B2, B3 and B4 on the CUDA card against their plain PyTorch versions
 on the same inputs (the kernels have no CPU mode, so these tests skip
-without a card). This file imports no JAX: the machine with the card has
+without a card), and the six extension axes' plain path on the card. This file imports no JAX: the machine with the card has
 none. Run it there with
 
     python -m pytest -m gpu --noconftest -p no:randomly tests/test_torch_gpu.py
@@ -16,6 +16,7 @@ import torch
 
 from ics_wt_physicsengine_torch.core import chemistry as chem
 from ics_wt_physicsengine_torch.core import reactor as R
+from ics_wt_physicsengine_torch.models import make_monte_carlo_batch
 from ics_wt_physicsengine_torch.models import plant as P
 from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
@@ -386,3 +387,44 @@ def test_titration_curves_on_the_card(cuda):
         verdict = K.titration_check(k, shifts, curve)
         assert verdict["finite"] and verdict["in_range"], verdict
         assert verdict["rising"] and verdict["enough"], verdict
+
+
+# ---------------------------------------------------------------------------
+# the extension axes on the card (plain PyTorch: no kernel serves them)
+# ---------------------------------------------------------------------------
+
+
+def test_all_axes_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the six-axis plant batch in float64 on the card and on
+    the CPU through the same plain code: rtol 1e-9, atol 1e-12 (the two
+    devices' exp/pow may differ in the last ulp)."""
+    cfg = P.full_chemistry_config(n_zones=20)
+    bc = P.full_chemistry_boundary()
+    card, host = (R.step(*make_monte_carlo_batch(
+        cfg, 4, seed=0, dtype=torch.float64, device=dev), bc, 1.0, 3)
+        for dev in (cuda, torch.device("cpu")))
+    for f in dataclasses.fields(host):
+        a, b = getattr(card, f.name), getattr(host, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is not None:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12,
+                                       msg=f.name)
+
+
+def test_ten_instrument_plant_step_on_the_card(cuda):
+    """The six-axis plant with its ten instruments steps on the card
+    through ``plant_step`` and launches no fused kernel."""
+    params, plant = P.make_plant(P.full_chemistry_config(n_zones=20),
+                                 device=cuda)
+    assert FP.unsupported_reason(params) is not None
+    FP.reset_launch_counts()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):
+        plant, readings = P.plant_step(params, plant,
+                                       P.full_chemistry_boundary(), 1.0, 3,
+                                       generator=g)
+    assert len(readings) == 10
+    for name in ("ammonia_outlet", "oxygen_outlet", "turbidity_outlet"):
+        assert bool(torch.isfinite(readings[name].value))
+    assert bool(torch.isfinite(plant.reactor.pathogens).all())
+    assert not any(FP.LAUNCHES.values())

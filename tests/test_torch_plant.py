@@ -167,25 +167,46 @@ def test_make_plant_batch_bit_equal(randomize, dtype):
         TPL.make_plant_batch(tcfg, 0, device="cpu")
 
 
-def test_convert_ignores_keys_and_rejects_extension_sensors():
+def test_convert_ignores_keys_and_carries_extension_sensors():
     (jp, js), _ = plants(2)
     values = tree_to_numpy(js)
     values["ph_inlet"]["base"]["key"] = np.zeros(2, np.uint32)
     ts = convert.plant_state_from_numpy(values, dtype=F64, device="cpu")
     assert not hasattr(ts.ph_inlet.base, "key")
-    values["ammonia_outlet"] = {"base": {}}
-    with pytest.raises(NotImplementedError):
-        convert.plant_state_from_numpy(values, dtype=F64, device="cpu")
+    assert ts.ammonia_outlet is None
+    # a plant with the three instrumented axes carries its extra sensors
+    jcfg, _ = configs(2, enable_nitrogen=True, enable_gas=True,
+                      enable_particles=True)
+    jp, js = JPL.make_plant(jcfg, seed=1, dtype=jnp.float64)
+    values = tree_to_numpy(js)
+    values["ammonia_outlet"]["base"]["key"] = np.zeros(2, np.uint32)
+    ts = convert.plant_state_from_numpy(values, dtype=F64, device="cpu")
+    tp = convert.plant_params_from_numpy(tree_to_numpy(jp), dtype=F64,
+                                         device="cpu")
+    assert not hasattr(ts.ammonia_outlet.base, "key")
+    assert_tree_close(ts, js, atol=0.0)
+    assert_tree_close(tp, jp, atol=0.0)
 
 
 @pytest.mark.parametrize("flag", ["enable_nitrogen", "enable_gas",
                                   "enable_particles"])
-def test_extension_flags_raise(flag):
-    cfg = TR.ReactorConfiguration(n_zones=5, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        TPL.make_plant(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TPL.make_plant_batch(cfg, 3, device="cpu")
+def test_extension_flags_build(flag):
+    """Each instrumented axis adds its instrument to the plant and to the
+    plant batch, bit for bit as in the JAX package."""
+    jcfg, tcfg = configs(5, **{flag: True})
+    tp, ts = TPL.make_plant(tcfg, dtype=F64, device="cpu")
+    jp, js = JPL.make_plant(jcfg, seed=1, dtype=jnp.float64)
+    assert_tree_close(tp, jp, atol=0.0)
+    assert_tree_close(ts, js, atol=0.0)
+    name = {"enable_nitrogen": "ammonia_outlet",
+            "enable_gas": "oxygen_outlet",
+            "enable_particles": "turbidity_outlet"}[flag]
+    assert getattr(tp, name) is not None
+    tp, ts = TPL.make_plant_batch(tcfg, 3, seed=4, dtype=F64, device="cpu")
+    jp, js = JPL.make_plant_batch(jcfg, 3, seed=4, dtype=jnp.float64)
+    assert_tree_close(tp, jp, atol=0.0)
+    assert_tree_close(ts, js, atol=0.0)
+    assert getattr(ts, name).base.current_value.shape == (3,)
 
 
 def test_named_configurations():

@@ -379,12 +379,22 @@ def test_validation_matches_jax(kind, bad):
 
 
 @pytest.mark.parametrize("flag", TR.EXTENSION_FLAGS)
-def test_extension_axes_not_ported(flag):
-    cfg = TR.ReactorConfiguration(n_zones=5, **{flag: True})
-    with pytest.raises(NotImplementedError, match=flag):
-        TR.make_params(cfg, F64, device="cpu")
-    with pytest.raises(NotImplementedError, match=flag):
-        t_make_batch(cfg, 2, dtype=F64, device="cpu")
+def test_extension_axes_ported(flag):
+    """Each extension axis builds on the CPU, bit for bit as in the JAX
+    package: its parameters, initial state and Monte-Carlo batch (the
+    dynamics are held in tests/test_torch_extensions.py)."""
+    jcfg = JR.ReactorConfiguration(n_zones=5, **{flag: True})
+    tcfg = TR.ReactorConfiguration(n_zones=5, **{flag: True})
+    axis = flag[len("enable_"):]
+    tp = TR.make_params(tcfg, F64, device="cpu")
+    assert getattr(tp, axis) is not None
+    _assert_tree_equal(tp, JR.make_params(jcfg, jnp.float64))
+    _assert_tree_equal(TR.make_initial_state(tcfg, F64, device="cpu"),
+                       JR.make_initial_state(jcfg, jnp.float64))
+    jp, js = j_make_batch(jcfg, 2, seed=3, dtype=jnp.float64)
+    tp, ts = t_make_batch(tcfg, 2, seed=3, dtype=F64, device="cpu")
+    _assert_tree_equal(tp, jp)
+    _assert_tree_equal(ts, js)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():

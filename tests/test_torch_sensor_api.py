@@ -534,15 +534,31 @@ def test_suite_factory_builds_the_canonical_seven_with_jax_parameters():
 @pytest.mark.parametrize("flag,instrument", [
     ("enable_nitrogen", "ammonia_outlet"), ("enable_gas", "oxygen_outlet"),
     ("enable_particles", "turbidity_outlet")])
-def test_suite_factory_rejects_the_extension_instruments(flag, instrument):
-    config = TR.ReactorConfiguration(**{flag: True})
-    with pytest.raises(NotImplementedError, match=instrument):
-        TS.create_realistic_sensor_suite(config, device="cpu")
+def test_suite_factory_builds_the_extension_instruments(flag, instrument):
+    """Each instrumented axis adds its instrument to the suite, built as
+    the JAX package builds it."""
+    port = TS.create_realistic_sensor_suite(
+        TR.ReactorConfiguration(**{flag: True}), seed=42, dtype=F64,
+        device="cpu")
+    ref = JS.create_realistic_sensor_suite(
+        JR.ReactorConfiguration(**{flag: True}), seed=42)
+    assert list(port) == list(ref) and len(port) == 8
+    sensor = port[instrument]
+    assert type(sensor).__name__ == type(ref[instrument]).__name__
+    assert_tree_close(sensor.params, ref[instrument].params)
+    assert_tree_close(sensor.carry, ref[instrument].carry)
+    assert sensor.calibration_validity_hours == \
+        ref[instrument].calibration_validity_hours
+    full = TS.create_realistic_sensor_suite(
+        TR.ReactorConfiguration(enable_nitrogen=True, enable_gas=True,
+                                enable_particles=True), device="cpu")
+    assert len(full) == 10
 
 
 def test_enum_style_aliases_match_jax():
     for name in ("ChlorineSensorType", "ChlorineMeasurementType",
-                 "FlowSensorType", "TemperatureSensorType"):
+                 "FlowSensorType", "TemperatureSensorType",
+                 "OxygenSensorType"):
         ours, theirs = getattr(TS, name), getattr(JS, name)
         public = {k: v for k, v in vars(theirs).items()
                   if not k.startswith("_")}
@@ -562,10 +578,13 @@ def test_sensor_validation_suite_runs_on_the_cpu(suite, capsys):
 
 
 def test_run_all_sensor_validations(capsys):
+    """The four base suites, then the ammonia, oxygen and turbidity
+    suites."""
     TS.run_all_sensor_validations("cpu")
     out = capsys.readouterr().out
     assert out.count("validation passed") == 4
-    assert "ammonia, oxygen, turbidity: not ported" in out
+    assert out.count("validation: ALL PASS") == 3
+    assert "FAIL:" not in out and "ALL SENSOR VALIDATIONS PASSED" in out
 
 
 def test_demo_runs_on_the_cpu(capsys):
