@@ -76,10 +76,33 @@ Phases:
  5f. the same configuration at 16 plants x 20 zones x 20 steps in float64
     on the card and on the CPU: every field within rtol 1e-9 + atol 1e-12;
  5g. PLANT-EXT-1, the six-axis plant with its ten instruments
-    (make_plant, 20 zones) through plant_rollout_auto for 600 steps,
-    which takes the plant_step loop: steps/s (host clock) and the share of
-    finite readings per instrument; no B3 launch. Phases 5e-5g are plain
-    PyTorch: no hand-written kernel serves the extension axes;
+    (make_plant, 20 zones) through plant_rollout_auto for 150 steps (cut
+    from 600 to make room for 5h-5m), which takes the plant_step loop:
+    steps/s (host clock) and the share of finite readings per instrument;
+    no B3 launch. Phases 5e-5g are plain PyTorch: no hand-written kernel
+    serves the extension axes;
+ 5h. CL-4096, bench.py's bench_closed_loop: a 16 x 16 x 4 x 4 dual-PID
+    gain grid (4096 lanes) on the 20-zone plant, RKC-fast, float32,
+    record=False, through control.rollout_closed_loop; bench.py's 2048
+    steps cut to a 12 s window (printed); plant-steps/s and one step's
+    CUDA launches, device time and aten operations;
+ 5i. EKF-1024, bench.py's bench_ekf: 1024 EKFs on the 6-zone plant, 4
+    taps, measurement_noise 4e-4, readings from a seeded generator,
+    256 steps (or a 12 s window); filter-steps/s;
+ 5j. ENKF-8192, bench.py's bench_enkf: 8192 members, 6 zones, inflation
+    1.02, localization radius 2.0; member-steps/s;
+ 5k. MPC-20, examples/mpc_dosing.py's settings (20 zones, dt 60 s, so
+    121 RK4 substeps a step): one mpc_plan and one run_mpc segment, with
+    horizon_moves, steps_per_move and iters cut from 6, 10 and 20
+    (MPC_CUT, printed); seconds per re-plan;
+ 5l. TRAIN-3, examples/treatment_train.py: 3 stages of 5 zones, 15%
+    recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 12 s
+    window, then its 16-dose booster sweep as one batched call;
+    network-steps/s;
+ 5m. a closed loop, an EKF bank step (vmap of jacfwd) and an MHE step in
+    float64 on the card against the CPU
+    (control/device_checks.py): rtol 1e-9 + atol 1e-12. Phases 5h-5m are
+    plain PyTorch and must launch none of B1-B4;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -88,7 +111,7 @@ Launch counts are zeroed just before each run of a main-path entry point
 launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b and 5c. Direct kernel calls (phases 3, 3b and
 3c, the kernel-only times) and phase 6 lie outside those windows; phases
-5d-5g must launch none. Exits non-zero,
+5d-5m must launch none. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -99,6 +122,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1094,31 +1118,398 @@ def main() -> int:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, readings = P.plant_rollout_auto(params, plant, full_bc, DT, m,
-                                               600, record=True, seed=0)
+                                               PLANT_EXT_STEPS, record=True,
+                                               seed=0)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = kernel_counts()
         shares = {name: float(torch.isfinite(v).double().mean())
                   for name, v in readings.items()}
         report["plant_ext"] = dict(
-            zones=20, steps=600, substeps=m, seconds=seconds,
-            steps_per_s=600 / seconds, finite_share=shares,
-            kernel_launches=counts)
+            zones=20, steps=PLANT_EXT_STEPS, cut_from=600, substeps=m,
+            seconds=seconds, steps_per_s=PLANT_EXT_STEPS / seconds,
+            finite_share=shares, kernel_launches=counts)
         extra = ("ammonia_outlet", "oxygen_outlet", "turbidity_outlet")
         check(len(readings) == 10 and all(n in readings for n in extra)
-              and all(v.shape == (600,) for v in readings.values())
+              and all(v.shape == (PLANT_EXT_STEPS,)
+                      for v in readings.values())
               and FP.unsupported_reason(params) is not None
               and not any(counts.values())
               and bool(torch.isfinite(final.reactor.pathogens).all()),
               f"PLANT-EXT-1 (1 plant x 20 zones, 10 instruments, "
-              f"plant_rollout_auto -> the plant_step loop): 600 steps in "
-              f"{seconds:.2f} s, {600 / seconds:.2f} steps/s (host clock); "
+              f"plant_rollout_auto -> the plant_step loop): {PLANT_EXT_STEPS} "
+              f"steps (cut from 600) in {seconds:.2f} s, "
+              f"{PLANT_EXT_STEPS / seconds:.2f} steps/s (host clock); "
               "finite readings "
               + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
               + f"; no B1-B4 launch ({counts})")
         return True
 
     plant_ext()
+
+
+    # ---- 5h-5m. the control slice (plain PyTorch, no kernel) -------------
+    from ics_wt_physicsengine_torch import control as C
+    from ics_wt_physicsengine_torch.control import device_checks as DC
+    from ics_wt_physicsengine_torch.core import network as NW
+
+    def windowed(run, carry, max_steps, window_s, what):
+        """Warm ``run(carry, n) -> carry`` up for 2 steps, size the step
+        count to ``window_s`` on the host clock from 2 more, print the cut,
+        then time that many steps (CUDA events) with the launch counts
+        zeroed just before and read just after. Returns (ms, n_steps,
+        carry, counts)."""
+        carry = run(carry, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = run(carry, 2)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 2
+        n_steps = int(min(max_steps, max(4, window_s / step_s)))
+        if n_steps < max_steps:
+            print(f"  {what}: n_steps cut from {max_steps} to {n_steps} (a "
+                  f"{window_s:.0f} s window at {step_s * 1e3:.2f} ms per "
+                  "step after the warm-up)")
+        reset_kernel_counts()
+        ms, carry = timed(lambda: run(carry, n_steps))
+        return ms, n_steps, carry, kernel_counts()
+
+    def no_kernel(what, counts):
+        check(not any(counts.values()),
+              f"{what}: no B1-B4 launch in the window ({counts})")
+
+    # CL-4096: bench.py's bench_closed_loop
+    @phase("path: closed-loop gain sweep")
+    def closed_loop():
+        cfg = R.ReactorConfiguration(volume=1000, height=2.0,
+                                     diameter=0.798, n_zones=20,
+                                     initial_chlorine=0.5)
+        m, s = R.default_rkc_plan(cfg, DT, mode="fast")
+        gains = C.make_gain_grid(
+            kp_cl=np.linspace(0.05, 3.0, 16),
+            ki_cl=np.linspace(0.0, 0.25, 16),
+            kp_ph=np.linspace(-2.0, -0.1, 4),
+            ki_ph=np.linspace(-0.2, 0.0, 4), dtype=f32, device=dev)
+        n = C.n_gains(gains)
+        params = R.make_params(cfg, dtype=f32, device=dev)
+        state = R.make_initial_state(cfg, dtype=f32, device=dev)
+        state = R.ReactorState(**{
+            k: (None if v is None else v.expand((n,) + tuple(v.shape)))
+            for k, v in vars(state).items()})
+        bc = R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.2,
+                                  inlet_chlorine=0.5)
+
+        def run(c, n_steps):
+            st, cc, b = c
+            with torch.no_grad():
+                return C.rollout_closed_loop(
+                    params, st, b, C.dual_pid_controller, gains, cc, DT, m,
+                    n_steps, stages=s, record=False)[:3]
+
+        carry = (state, C.make_dual_pid_carry((n,), f32, dev), bc)
+        prof = step_profile(lambda: run(carry, 1))
+        ms, n_steps, (st, cc, b), counts = windowed(
+            run, carry, 2048, CONTROL_WINDOW_S, "CL-4096")
+        rate = n * n_steps / (ms / 1e3)
+        busy = prof["device_ms"]
+        step_ms = ms / n_steps
+        idle = None if busy is None else 1.0 - busy / step_ms
+        cmds = (b.chlorine_flow_rate, b.acid_flow_rate)
+        ok = (n == 4096 and bool(torch.isfinite(st.chlorine).all())
+              and bool(torch.isfinite(st.pH).all())
+              and all(bool(((x >= 0) & (x <= lim)).all())
+                      for x, lim in zip(cmds, (1.0, 2.0))))
+        report["CL-4096"] = dict(
+            lanes=n, zones=20, plan=(m, s), n_steps=n_steps, cut_from=2048,
+            window_ms=ms, ms_per_step=step_ms, plant_steps_per_s=rate,
+            launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"], device_ms_per_step=busy,
+            device_idle_share=idle, kernel_launches=counts)
+        check(ok, f"CL-4096 ({n} gain lanes x 20 zones, RKC-fast {m}x{s}, "
+              f"float32, {n_steps} steps): {rate:.4e} plant-steps/s, "
+              f"{step_ms:.2f} ms per step; one step launches "
+              f"{prof['launches']} CUDA kernels ({prof['aten_ops']} aten "
+              f"ops), {fmt(busy, '.3f')} ms of device time (idle share "
+              f"{fmt(idle, '.3f')}); states finite, commands inside "
+              "[0, 1] and [0, 2] L/min")
+        no_kernel("CL-4096", counts)
+        return True
+
+    closed_loop()
+
+    taps = [("pH", 0), ("pH", -1), ("chlorine", -1), ("temperature", -1)]
+    cfg6 = R.ReactorConfiguration(volume=1000, height=2.0, diameter=0.798,
+                                  n_zones=6)
+    bc6 = R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.2,
+                               inlet_chlorine=0.5)
+    base6 = torch.tensor([7.2, 7.2, 2.0, 20.0], dtype=f32, device=dev)
+
+    # EKF-1024: bench.py's bench_ekf
+    @phase("path: EKF bank")
+    def ekf_bank():
+        n_filters, max_steps = 1024, 256
+        params = R.make_params(cfg6, dtype=f32, device=dev)
+        m = R.default_substeps(cfg6, DT)
+        step = C.make_ekf(params, 6, taps, DT, m, measurement_noise=4e-4)
+        one = C.make_ekf_carry(R.make_initial_state(cfg6, dtype=f32,
+                                                    device=dev),
+                               p0=(0.05, 1.0, 4.0), n_zones=6)
+        carry = C.EKFCarry(x=one.x.expand(n_filters, -1).clone(),
+                           P=one.P.expand(n_filters, -1, -1).clone())
+        g = torch.Generator(device=dev).manual_seed(0)
+        zs = base6 + 0.02 * torch.randn((max_steps + 4, n_filters, 4),
+                                        generator=g, device=dev)
+        seen = [0]
+
+        def run(c, n_steps):
+            for _ in range(n_steps):
+                c, _ = step(c, zs[seen[0] % zs.shape[0]], bc6)
+                seen[0] += 1
+            return c
+
+        prof = step_profile(lambda: run(carry, 1))
+        ms, n_steps, c, counts = windowed(run, carry, max_steps,
+                                          CONTROL_WINDOW_S, "EKF-1024")
+        rate = n_filters * n_steps / (ms / 1e3)
+        diag = torch.diagonal(c.P, dim1=-2, dim2=-1)
+        ok = (bool(torch.isfinite(c.x).all())
+              and bool(torch.isfinite(c.P).all())
+              and bool((diag > 0).all())
+              and float((c.P - c.P.transpose(-1, -2)).abs().max()) == 0.0)
+        report["EKF-1024"] = dict(
+            filters=n_filters, zones=6, state=18, taps=4, substeps=m,
+            n_steps=n_steps, cut_from=max_steps, window_ms=ms,
+            ms_per_step=ms / n_steps, filter_steps_per_s=rate,
+            launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"],
+            device_ms_per_step=prof["device_ms"], kernel_launches=counts)
+        check(ok, f"EKF-1024 ({n_filters} filters x 18 states, 4 taps, "
+              f"vmap(jacfwd(step)), float32, {n_steps} steps): {rate:.4e} "
+              f"filter-steps/s, {ms / n_steps:.2f} ms per step; one step "
+              f"launches {prof['launches']} CUDA kernels "
+              f"({prof['aten_ops']} aten ops, {fmt(prof['device_ms'], '.3f')}"
+              " ms of device time); estimates finite, covariances symmetric "
+              "with a positive diagonal")
+        no_kernel("EKF-1024", counts)
+        return True
+
+    ekf_bank()
+
+    # ENKF-8192: bench.py's bench_enkf
+    @phase("path: EnKF")
+    def enkf():
+        n_members, max_steps = 8192, 256
+        params = R.make_params(cfg6, dtype=f32, device=dev)
+        m = R.default_substeps(cfg6, DT)
+        step = C.make_enkf(params, 6, taps, DT, m, measurement_noise=4e-4,
+                           inflation=1.02, localization_radius=2.0)
+        carry = C.make_enkf_carry(
+            R.make_initial_state(cfg6, dtype=f32, device=dev),
+            p0=(0.05, 1.0, 4.0), n_zones=6, n_ensemble=n_members,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(1)
+        zs = base6 + 0.02 * torch.randn((max_steps + 4, 4), generator=g,
+                                        device=dev)
+        seen = [0]
+
+        def run(c, n_steps):
+            for _ in range(n_steps):
+                c, _ = step(c, zs[seen[0] % zs.shape[0]], bc6)
+                seen[0] += 1
+            return c
+
+        prof = step_profile(lambda: run(carry, 1))
+        ms, n_steps, c, counts = windowed(run, carry, max_steps,
+                                          CONTROL_WINDOW_S, "ENKF-8192")
+        rate = n_members * n_steps / (ms / 1e3)
+        spread = C.ensemble_spread(c)
+        ok = bool(torch.isfinite(c.ensemble).all()) \
+            and bool((spread > 0).all())
+        report["ENKF-8192"] = dict(
+            members=n_members, zones=6, inflation=1.02,
+            localization_radius=2.0, n_steps=n_steps, cut_from=max_steps,
+            window_ms=ms, ms_per_step=ms / n_steps,
+            member_steps_per_s=rate, launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"],
+            device_ms_per_step=prof["device_ms"], kernel_launches=counts)
+        check(ok, f"ENKF-8192 ({n_members} members x 18 states, inflation "
+              f"1.02, localization 2.0, float32, {n_steps} steps): "
+              f"{rate:.4e} member-steps/s, {ms / n_steps:.2f} ms per step; "
+              f"one step launches {prof['launches']} CUDA kernels "
+              f"({prof['aten_ops']} aten ops, "
+              f"{fmt(prof['device_ms'], '.3f')} ms of device time); "
+              "members finite, spread > 0")
+        no_kernel("ENKF-8192", counts)
+        return True
+
+    enkf()
+
+    # MPC-20: examples/mpc_dosing.py's settings
+    @phase("path: shooting MPC")
+    def mpc():
+        cfg = R.ReactorConfiguration(n_zones=20, initial_chlorine=0.5,
+                                     flow_rate=20.0)
+        bc = R.BoundaryConditions(inlet_flow_rate=20.0)
+        dt = 60.0
+        m = R.default_substeps(cfg, dt)
+        moves, per_move, iters = MPC_CUT
+        cuts = [f"{name} cut from {full} to {value}" for name, full, value
+                in (("horizon_moves", 6, moves),
+                    ("steps_per_move", 10, per_move), ("iters", 20, iters))
+                if value != full]
+        print(f"  MPC-20: {', '.join(cuts)} ({m} RK4 substeps a 60 s step)")
+        program = torch.cat([torch.full((60,), 2.0, dtype=f32, device=dev),
+                             torch.full((60,), 1.0, dtype=f32, device=dev)])
+        params = R.make_params(cfg, dtype=f32, device=dev)
+        state = R.make_initial_state(cfg, dtype=f32, device=dev)
+        horizon = moves * per_move
+        reset_kernel_counts()
+        plan_ms, (plan, costs) = timed(lambda: C.mpc_plan(
+            params, state, bc, program[:horizon],
+            torch.full((moves,), 0.2, dtype=f32, device=dev), dt=dt,
+            substeps=m, steps_per_move=per_move, iters=iters))
+        seg_ms, res = timed(lambda: C.run_mpc(
+            cfg, program[:per_move], dt, horizon_moves=moves,
+            steps_per_move=per_move, iters=iters, boundary=bc, dtype=f32,
+            device=dev))
+        counts = kernel_counts()
+        step_ms, _ = timed(lambda: R.step(params, state, bc, dt, m))
+        prof = step_profile(lambda: R.step(params, state, bc, dt, m))
+        ok = (bool(torch.isfinite(plan).all())
+              and bool(((plan >= 0) & (plan <= 1.0)).all())
+              and bool(torch.isfinite(costs).all())
+              and bool(torch.isfinite(res["chlorine_outlet"]).all())
+              and res["commands"].shape == (per_move,))
+        report["MPC-20"] = dict(
+            zones=20, dt=dt, substeps=m, horizon_moves=moves,
+            steps_per_move=per_move, iters=iters, cut_from=(6, 10, 20),
+            replan_ms=plan_ms, segment_ms=seg_ms,
+            plant_step_ms=step_ms, launches_per_plant_step=prof["launches"],
+            aten_ops_per_plant_step=prof["aten_ops"],
+            plan=plan.tolist(), costs=costs.tolist(),
+            segment_score=res["score"], kernel_launches=counts)
+        check(ok, f"MPC-20 (20 zones, dt 60 s, {m} substeps, {moves} move "
+              f"x {per_move} steps, {iters} Adam iteration(s), float32): "
+              f"{plan_ms / 1e3:.2f} s per re-plan; one run_mpc segment "
+              f"(a re-plan + {per_move} steps) {seg_ms / 1e3:.2f} s; one "
+              f"plant step {step_ms:.1f} ms, {prof['launches']} CUDA "
+              "kernels; moves in [0, 1] L/min, costs and trajectory finite")
+        no_kernel("MPC-20", counts)
+        return True
+
+    mpc()
+
+    # TRAIN-3: examples/treatment_train.py
+    @phase("path: treatment train")
+    def train():
+        def stage(volume):
+            height = volume / 1000.0 / (math.pi * (0.798 / 2) ** 2)
+            return R.ReactorConfiguration(n_zones=5, volume=volume,
+                                          height=height,
+                                          initial_chlorine=0.2)
+
+        W = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.15], [0.0, 1.0, 0.0]])
+        D = np.array([[1, 1, 1], [2, 1, 5], [1, 5, 1]])
+        topo = NW.NetworkTopology(routing=W, delay_steps=D)
+        params, ns0 = NW.make_network(
+            [stage(800.0), stage(4000.0), stage(2500.0)], topo, dtype=f32,
+            device=dev)
+        ta = NW.topology_arrays(topo, f32, dev)
+        dt, m, max_steps = 5.0, 8, 4320
+
+        def boundary(booster):
+            return R.BoundaryConditions(
+                inlet_flow_rate=torch.tensor([8.0, 0.0, 0.0], device=dev),
+                inlet_pH=7.6, inlet_chlorine=0.05, inlet_temperature=18.0,
+                chlorine_flow_rate=torch.tensor([0.25, 0.0, 0.0],
+                                                device=dev)
+                + booster * torch.tensor([0.0, 0.0, 1.0], device=dev),
+                chlorine_concentration=50.0)
+
+        one_bc = boundary(0.1)
+
+        def run(ns, n_steps):
+            with torch.no_grad():
+                return NW.rollout_network(params, ta, ns, one_bc, dt, m,
+                                          n_steps, record=False)[0]
+
+        prof = step_profile(lambda: run(ns0, 1))
+        ms, n_steps, fs, counts = windowed(run, ns0, max_steps,
+                                           CONTROL_WINDOW_S, "TRAIN-3")
+        rate = n_steps / (ms / 1e3)
+        doses = torch.linspace(0.0, 0.5, 16, device=dev)
+        sweep_bc = boundary(doses[:, None])
+        batched = NW.NetworkState(
+            reactor=R.ReactorState(**{
+                k: (None if v is None else v.expand((16,) + tuple(v.shape)))
+                for k, v in vars(ns0.reactor).items()}),
+            ring=ns0.ring.expand((16,) + tuple(ns0.ring.shape)),
+            ring_index=ns0.ring_index.expand((16,)))
+
+        def run_sweep(ns, n):
+            with torch.no_grad():
+                return NW.rollout_network(params, ta, ns, sweep_bc, dt, m, n,
+                                          record=False)[0]
+
+        s_ms, s_steps, fs_all, s_counts = windowed(
+            run_sweep, batched, max_steps, CONTROL_WINDOW_S,
+            "TRAIN-3 dose sweep")
+        s_rate = 16 * s_steps / (s_ms / 1e3)
+        finished = fs_all.reactor.chlorine[:, 2, -1].cpu()
+        # the booster doses the clearwell's zone 0
+        dosed = fs_all.reactor.chlorine[:, 2, 0].cpu()
+        ok = (bool(torch.isfinite(fs.reactor.chlorine).all())
+              and bool(torch.isfinite(fs_all.reactor.chlorine).all())
+              and bool((dosed[1:] > dosed[:-1]).all())
+              and int(fs.ring_index) == n_steps + 4)
+        report["TRAIN-3"] = dict(
+            stages=3, zones=5, dt=dt, substeps=m, n_steps=n_steps,
+            cut_from=max_steps, window_ms=ms, network_steps_per_s=rate,
+            sweep_doses=16, sweep_steps=s_steps, sweep_window_ms=s_ms,
+            sweep_network_steps_per_s=s_rate,
+            launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"],
+            device_ms_per_step=prof["device_ms"],
+            stage_outlet_chlorine=fs.reactor.chlorine[:, -1].tolist(),
+            finished_water_by_dose=finished.tolist(),
+            dosed_zone_by_dose=dosed.tolist(),
+            kernel_launches={**counts, **{f"sweep {k}": v
+                                          for k, v in s_counts.items()}})
+        check(ok, f"TRAIN-3 (3 stages x 5 zones, 15% recycle, delays 2 "
+              f"and 5, dt 5 s, RK4 x{m}, float32): {n_steps} steps at "
+              f"{rate:.1f} network-steps/s; the 16-dose sweep as one "
+              f"batched call, {s_steps} steps at {s_rate:.1f} "
+              f"network-steps/s; one step launches {prof['launches']} CUDA "
+              f"kernels ({prof['aten_ops']} aten ops); finished water "
+              f"{float(finished.min()):.3f}..{float(finished.max()):.3f} "
+              "mg/L; the clearwell's dosed zone rises with the booster "
+              "dose")
+        no_kernel("TRAIN-3", {**counts, **s_counts})
+        return True
+
+    train()
+
+    @phase("path: control on the card vs the CPU")
+    def control_cpu():
+        reset_kernel_counts()
+        worst = {}
+        for name, case in DC.CASES.items():
+            card, host = case(dev), case(torch.device("cpu"))
+            for key, b in host.items():
+                a = card[key].cpu()
+                worst[f"{name}: {key}"] = float(
+                    ((a - b).abs() / (1e-9 * b.abs() + 1e-12)).max())
+        counts = kernel_counts()
+        report["control_card_vs_cpu"] = worst
+        top = max(worst, key=worst.get)
+        check(max(worst.values()) <= 1.0 and len(worst) >= 10,
+              "closed loop, EKF bank step and MHE step in float64, card vs "
+              "CPU: every output within rtol 1e-9 + atol 1e-12 (largest "
+              f"share of the tolerance {worst[top]:.3g}, in {top})")
+        no_kernel("control card vs CPU", counts)
+        return True
+
+    control_cpu()
 
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
@@ -1166,6 +1557,13 @@ def main() -> int:
 
 # FULLCHEM-8192's timed window [s]: its step count is cut to fit it
 FULLCHEM_WINDOW_S = 10.0
+# PLANT-EXT-1's steps (cut from 600 to keep the script inside its time)
+PLANT_EXT_STEPS = 150
+# CL-4096, EKF-1024, ENKF-8192 and TRAIN-3's timed windows [s]
+CONTROL_WINDOW_S = 12.0
+# MPC-20's horizon_moves, steps_per_move and Adam iterations (cut from 6,
+# 10, 20: a 60 s step takes 121 RK4 substeps of plain PyTorch)
+MPC_CUT = (1, 10, 1)
 
 
 def fmt(x, spec):

@@ -2,7 +2,7 @@
 Physics core: the multi-zone CSTR over dense zone tensors.
 
 Layering:
-  thermodynamics -> chemistry / transport / spatial -> reactor
+  thermodynamics -> chemistry / transport / spatial -> reactor -> network
   extension axes: nitrogen, gas, particles, disinfection, biofilm, phase
 
 The compute paths are functions on tensors; the exported classes are the
@@ -99,6 +99,15 @@ from ics_wt_physicsengine_torch.core.phase import (  # noqa: F401
     make_phase_params,
     saturation_vapor_pressure,
     validate_phase,
+)
+from ics_wt_physicsengine_torch.core.network import (  # noqa: F401
+    NetworkState,
+    NetworkTopology,
+    make_network,
+    network_step,
+    rollout_network,
+    rollout_network_scheduled,
+    topology_arrays,
 )
 from ics_wt_physicsengine_torch.device import resolve_device
 

@@ -23,6 +23,7 @@ import torch
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
+from ics_wt_physicsengine_torch.utils.dispatch import nonneg
 
 LN10 = float(np.log(10.0))
 SECONDS_PER_DAY = 86400.0
@@ -95,7 +96,7 @@ def make_biofilm_params(dtype=DEFAULT_DTYPE, device=None, **overrides
 # ---------------------------------------------------------------------------
 
 def _pos(x):
-    return torch.clamp(x, min=0.0)
+    return nonneg(x)
 
 
 def monod(s, K_s):
@@ -119,7 +120,7 @@ def specific_growth_bulk(s, Cl, T_C, p: BiofilmParams):
 def specific_growth_film(s, Cl, T_C, B, p: BiofilmParams):
     """Film specific growth rate [1/s]: matrix-protected inhibition and the
     logistic carrying-capacity factor (1 - B/B_max)."""
-    room = torch.clamp(1.0 - _pos(B) / p.B_max, min=0.0)
+    room = nonneg(1.0 - _pos(B) / p.B_max)
     return (p.mu_max / SECONDS_PER_DAY) * p.theta_mu ** (T_C - 20.0) \
         * monod(s, p.K_s) * chlorine_inhibition(Cl, p.K_I_film) * room
 

@@ -28,7 +28,8 @@ import torch
 from ics_wt_physicsengine_torch.core import constants as c
 from ics_wt_physicsengine_torch.core import thermodynamics as thermo
 from ics_wt_physicsengine_torch.device import resolve_device, tensor_from_numpy
-from ics_wt_physicsengine_torch.utils.dispatch import align_trailing
+from ics_wt_physicsengine_torch.utils.dispatch import (absolute,
+                                                       align_trailing, clip)
 
 LN10 = math.log(10.0)
 
@@ -168,9 +169,9 @@ def solve_pH(k: ChemistryConstants, initial_guess=7.0,
         f = charge_balance_error(pH, k)
         df = charge_balance_derivative(pH, k)
         cap = MAX_NEWTON_STEP * NEWTON_STEP_DECAY ** i
-        delta = torch.clip(-f / df, -cap, cap)
-        pH_new = torch.clip(pH + delta, 0.0, 14.0)
-        newly_done = torch.abs(delta) < tolerance
+        delta = clip(-f / df, -cap, cap)
+        pH_new = clip(pH + delta, 0.0, 14.0)
+        newly_done = absolute(delta) < tolerance
         pH = torch.where(done, pH, pH_new)
         done = done | newly_done
     return pH

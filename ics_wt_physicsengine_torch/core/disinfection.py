@@ -28,6 +28,7 @@ import torch
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
+from ics_wt_physicsengine_torch.utils.dispatch import clip, nonneg
 
 LN10 = float(np.log(10.0))
 SECONDS_PER_MIN = 60.0
@@ -113,7 +114,7 @@ def make_disinfection_params(dtype=DEFAULT_DTYPE, device=None, **overrides
 def germicidal_weight(pH, T_C, Ka_HOCl, p: DisinfectionParams):
     """phi(pH, T): HOCl-weighted biocidal activity of the free-chlorine
     pool, normalized to 1 at 20 C / pH 7."""
-    H = 10.0 ** (-torch.clip(pH, 0.0, 14.0))
+    H = 10.0 ** (-clip(pH, 0.0, 14.0))
     alpha = H / (H + Ka_HOCl)
     phi = alpha + p.r_ocl * (1.0 - alpha)
     alpha_ref = 1.0 / (1.0 + 10.0 ** (7.0 - 7.45))
@@ -124,15 +125,15 @@ def chlorine_lethality(Cl, pH, T_C, Ka_HOCl, p: DisinfectionParams):
     """Chick-Watson specific kill rate [1/s] per pathogen class:
     ``[..., P, Z]`` from ``[..., Z]`` chlorine/pH/temperature fields."""
     phi = germicidal_weight(pH, T_C, Ka_HOCl, p)
-    base = p.theta_cl ** (T_C - 20.0) * phi * torch.clamp(Cl, min=0.0)
+    base = p.theta_cl ** (T_C - 20.0) * phi * nonneg(Cl)
     return p.k_cl[..., :, None] * base[..., None, :]
 
 
 def absorbance_254(toc, tss_total, p: DisinfectionParams):
     """UV254 absorbance [1/cm] the water carries: background + organics
     + particle shading."""
-    return p.a_water + p.a_toc * torch.clamp(toc, min=0.0) \
-        + p.a_tss * torch.clamp(tss_total, min=0.0)
+    return p.a_water + p.a_toc * nonneg(toc) \
+        + p.a_tss * nonneg(tss_total)
 
 
 def uvt_percent(a254):
@@ -144,13 +145,13 @@ def average_fluence(e0, a254, p: DisinfectionParams):
     """Beer-Lambert average fluence rate across the ``uv_path_cm`` gap
     [mW/cm2] for wall intensity ``e0``:
     E_avg = E0 (1 - 10^(-a d)) / (a d ln 10), -> E0 as a d -> 0."""
-    ad = torch.clamp(a254 * p.uv_path_cm, min=0.0)
+    ad = nonneg(a254 * p.uv_path_cm)
     small = ad < 1e-6
     safe = torch.where(small, torch.ones_like(ad), ad)
     frac = torch.where(small, 1.0 - 0.5 * LN10 * ad,
                        (1.0 - 10.0 ** (-safe)) / (safe * LN10))
     if isinstance(e0, torch.Tensor):
-        return torch.clamp(e0, min=0.0) * frac
+        return nonneg(e0) * frac
     return max(e0, 0.0) * frac
 
 
@@ -164,21 +165,21 @@ def chlorine_demand_rate(toc, Cl, T_C, p: DisinfectionParams):
     """Organics-exerted chlorine demand [mg Cl/L/s], first order in both
     TOC and residual."""
     return p.k_toc * p.theta_toc ** (T_C - 20.0) \
-        * torch.clamp(toc, min=0.0) * torch.clamp(Cl, min=0.0)
+        * nonneg(toc) * nonneg(Cl)
 
 
 def thm_formation_rate(demand_rate, pH, p: DisinfectionParams):
     """THM formation [ug/L/s] as a pH-enhanced yield on the exerted
     demand."""
-    return p.y_thm * 10.0 ** (p.b_ph_thm * (torch.clip(pH, 0.0, 14.0)
+    return p.y_thm * 10.0 ** (p.b_ph_thm * (clip(pH, 0.0, 14.0)
                                             - 7.5)) * demand_rate
 
 
 def log_inactivation(n, n0):
     """log10 removal relative to the reference (inlet) concentration,
     floored so a sterile zone reports a large finite credit."""
-    n0 = torch.clamp(n0, min=1e-30)
-    return torch.log10(n0 / torch.maximum(n, 1e-30 * n0))
+    n0 = clip(n0, 1e-30)
+    return torch.log10(n0 / clip(n, 1e-30 * n0))
 
 
 # ---------------------------------------------------------------------------

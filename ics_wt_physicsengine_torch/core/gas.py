@@ -28,7 +28,7 @@ from ics_wt_physicsengine_torch.core import chemistry as chem
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
-from ics_wt_physicsengine_torch.utils.dispatch import align_trailing
+from ics_wt_physicsengine_torch.utils.dispatch import align_trailing, nonneg
 
 # molar masses [g/mol]
 MW_O2 = 31.9988
@@ -134,13 +134,13 @@ def ph_per_carbonate(pH, k: chem.ChemistryConstants):
 
 def o2_monod(o2, K):
     """Monod O2 limitation factor for aerobic processes."""
-    o2 = torch.clamp(o2, min=0.0)
+    o2 = nonneg(o2)
     return o2 / (align_trailing(K, o2) + o2)
 
 
 def o2_inhibition(o2, K_I):
     """O2 inhibition factor for anoxic processes (denitrification)."""
-    o2 = torch.clamp(o2, min=0.0)
+    o2 = nonneg(o2)
     K_I = align_trailing(K_I, o2)
     return K_I / (K_I + o2)
 

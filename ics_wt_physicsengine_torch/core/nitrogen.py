@@ -30,6 +30,7 @@ import torch
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
+from ics_wt_physicsengine_torch.utils.dispatch import clip, nonneg
 
 # molar masses [g/mol]
 MW_N = 14.0067
@@ -112,21 +113,21 @@ def _theta(theta, T_C):
 
 def nitrification_rate(tan, T_C, p: NitrogenParams):
     """AOB: NH4+ -> NO2- [mg N/L/s], Monod in TAN, theta T-correction."""
-    tan = torch.clamp(tan, min=0.0)
+    tan = nonneg(tan)
     return (p.k_nitrif / SECONDS_PER_DAY) * _theta(p.theta_aob, T_C) \
         * tan / (p.K_nh + tan)
 
 
 def nitratation_rate(no2, T_C, p: NitrogenParams):
     """NOB: NO2- -> NO3- [mg N/L/s]."""
-    no2 = torch.clamp(no2, min=0.0)
+    no2 = nonneg(no2)
     return (p.k_nitrat / SECONDS_PER_DAY) * _theta(p.theta_nob, T_C) \
         * no2 / (p.K_no2 + no2)
 
 
 def denitrification_rate(no3, T_C, p: NitrogenParams):
     """NO3- -> N2 (leaves the water) [mg N/L/s]."""
-    no3 = torch.clamp(no3, min=0.0)
+    no3 = nonneg(no3)
     return (p.k_denit / SECONDS_PER_DAY) * _theta(p.theta_dn, T_C) \
         * no3 / (p.K_no3 + no3)
 
@@ -139,7 +140,7 @@ def chloramination_rate_constant(T_C, p: NitrogenParams):
 
 def hocl_fraction(pH, Ka_HOCl):
     """alpha_HOCl of free chlorine."""
-    H = 10.0 ** (-torch.clip(pH, 0.0, 14.0))
+    H = 10.0 ** (-clip(pH, 0.0, 14.0))
     return H / (H + Ka_HOCl)
 
 
@@ -156,8 +157,8 @@ def chloramination_extent(cl_mgL, tan_mgNL, pH, T_C, Ka_HOCl,
     decays for any imbalance. Both branches are evaluated and one is
     picked; the guarded denominators keep the branch not taken finite, so
     no ``inf * 0`` NaN reaches the ``where``."""
-    C = torch.clamp(cl_mgL, min=0.0) / _CL2_MGL_PER_MOL     # mol/L as Cl2
-    N = torch.clamp(tan_mgNL, min=0.0) / _N_MGL_PER_MOL     # mol/L as N
+    C = nonneg(cl_mgL) / _CL2_MGL_PER_MOL     # mol/L as Cl2
+    N = nonneg(tan_mgNL) / _N_MGL_PER_MOL     # mol/L as N
     k_eff = chloramination_rate_constant(T_C, p) \
         * hocl_fraction(pH, Ka_HOCl) * ammonia_fraction_nh3(pH, T_C)
     kd = k_eff * dt
@@ -172,7 +173,7 @@ def chloramination_extent(cl_mgL, tan_mgNL, pH, T_C, Ka_HOCl,
                                             A - B * E)
     x_eq = A * B * kd / (1.0 + B * kd)
     x = torch.where(near, x_eq, x_neq)
-    return torch.minimum(torch.clamp(x, min=0.0), B)
+    return clip(x, 0.0, B)
 
 
 # mol H+ released per mol N by each process (net, at drinking-water pH

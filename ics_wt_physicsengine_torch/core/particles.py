@@ -26,7 +26,7 @@ import torch
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
-from ics_wt_physicsengine_torch.utils.dispatch import align_trailing
+from ics_wt_physicsengine_torch.utils.dispatch import absolute, align_trailing
 
 G_GRAVITY = 9.80665          # [m/s^2]
 
@@ -209,7 +209,7 @@ def validate_particles(verbose: bool = True, device=None) -> bool:
     rate = settling_rates(p, f64(20.0), f64(0.4))[..., None]
     dx, dep = settle(x, rate)
     col = float(torch.sum(dx))
-    tol = 1e-6 * float(torch.sum(torch.abs(dx)))
+    tol = 1e-6 * float(torch.sum(absolute(dx)))
     check("settling conserves mass (column loss = deposit)",
           abs(col + float(torch.sum(dep))) < tol)
     check("top zone receives nothing from above",
@@ -219,13 +219,13 @@ def validate_particles(verbose: bool = True, device=None) -> bool:
     dxc = coagulation_chain(x, f64(30.0), p)
     check("coagulation conserves mass across classes",
           abs(float(torch.sum(dxc)))
-          < 1e-6 * float(torch.sum(torch.abs(dxc))))
+          < 1e-6 * float(torch.sum(absolute(dxc))))
     check("coagulation drains the finest class",
           bool((dxc[..., 0, :] < 0.0).all()))
     check("coagulation feeds the coarsest class",
           bool((dxc[..., -1, :] > 0.0).all()))
     check("no dose, no coagulation",
-          float(torch.max(torch.abs(
+          float(torch.max(absolute(
               coagulation_chain(x, f64(0.0), p)))) == 0.0)
 
     # turbidity: fines dominate per unit mass

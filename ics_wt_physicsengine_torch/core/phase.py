@@ -30,6 +30,7 @@ from ics_wt_physicsengine_torch.core import spatial as spatial_mod
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE,
                                                dataclass_from_numpy,
                                                numpy_dtype, resolve_device)
+from ics_wt_physicsengine_torch.utils.dispatch import clip, nonneg
 
 # --- literature constants ---
 LATENT_FUSION = 333550.0        # [J/kg] ice <-> water at 0 C (CRC)
@@ -118,7 +119,7 @@ def saturation_vapor_pressure(T_C):
 def ice_fraction(T_C, p: PhaseParams):
     """Diagnostic ice fraction phi(T): linear ramp across the mushy band,
     0 above ``t_freeze``, 1 below ``t_freeze - delta_freeze``."""
-    return torch.clip((p.t_freeze - T_C) / p.delta_freeze, 0.0, 1.0)
+    return clip((p.t_freeze - T_C) / p.delta_freeze, 0.0, 1.0)
 
 
 def heat_capacity_ratio(T_C, p: PhaseParams):
@@ -177,9 +178,9 @@ def evaporation_flux(T_water, T_ambient, humidity, wind_speed,
     """Evaporative mass flux m'' [kg/(m^2 s)] from the free surface:
     k_e (1 + c_w W) max(e_s(T_w) - RH e_s(T_a), 0). Condensation is
     clipped."""
-    deficit = torch.clamp(
+    deficit = nonneg(
         saturation_vapor_pressure(T_water)
-        - humidity * saturation_vapor_pressure(T_ambient), min=0.0)
+        - humidity * saturation_vapor_pressure(T_ambient))
     return p.k_evap * (1.0 + p.c_wind * wind_speed) * deficit
 
 

@@ -34,6 +34,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ics_wt_physicsengine_torch.core import biofilm as biofilm_mod
 from ics_wt_physicsengine_torch.core import chemistry as chem
@@ -50,8 +51,8 @@ from ics_wt_physicsengine_torch.core.chemistry import ChemistryConstants, LN10
 from ics_wt_physicsengine_torch.device import (DEFAULT_DTYPE, numpy_dtype,
                                                resolve_device)
 from ics_wt_physicsengine_torch.ops import integrators
-from ics_wt_physicsengine_torch.utils.dispatch import (align_trailing,
-                                                       map_tensors)
+from ics_wt_physicsengine_torch.utils.dispatch import (align_trailing, clip,
+                                                       map_tensors, nonneg)
 
 EXTENSION_FLAGS = ("enable_nitrogen", "enable_gas", "enable_particles",
                    "enable_disinfection", "enable_biofilm", "enable_phase")
@@ -505,22 +506,21 @@ def derivatives(params: ReactorParams, pH, Cl, T,
 
     # In-domain clamp: every term is evaluated at in-bounds values, so an
     # extreme forcing cannot drive an intermediate stage to inf/NaN.
-    pH = torch.clip(pH, 0.0, 14.0)
-    Cl = torch.clamp(Cl, min=0.0)
+    pH = clip(pH, 0.0, 14.0)
+    Cl = nonneg(Cl)
     pp_ph = phi = None
     if params.phase is not None:
         # sub-zero states are ice and the boil band caps the hot end
         pp_ph = _aligned(params.phase, T)
-        T = torch.minimum(torch.maximum(T, pp_ph.t_min),
-                          pp_ph.t_boil + pp_ph.delta_boil)
+        T = clip(T, pp_ph.t_min, pp_ph.t_boil + pp_ph.delta_boil)
         phi = phase_mod.ice_fraction(T, pp_ph)
     else:
-        T = torch.clip(T, 0.0, 100.0)
+        T = clip(T, 0.0, 100.0)
 
     # Gas exchange makes total carbonate a per-zone state: buffering and
     # speciation see the dynamic C_T.
     if gas is not None:
-        o2_s, ct_s = (torch.clamp(x, min=0.0) for x in gas)
+        o2_s, ct_s = (nonneg(x) for x in gas)
         ct_mol = ct_s * 1e-3
         k = replace(k, C_T_mol=ct_mol)
 
@@ -623,7 +623,7 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         # Chloramine formation is absent here: step() applies it as an
         # exact analytic operator split.
         np_ = _aligned(params.nitrogen, T)
-        nh, no2, no3, nhcl = (torch.clamp(x, min=0.0) for x in nitrogen)
+        nh, no2, no3, nhcl = (nonneg(x) for x in nitrogen)
         r1 = nitrogen_mod.nitrification_rate(nh, T, np_)      # [mg N/L/s]
         r2 = nitrogen_mod.nitratation_rate(no2, T, np_)
         r3 = nitrogen_mod.denitrification_rate(no3, T, np_)
@@ -681,7 +681,7 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         # exchange stencil vectorizes over it through a class axis in the
         # interface rates.
         pp = params.particles
-        tss, sludge = (torch.clamp(x, min=0.0) for x in particles)
+        tss, sludge = (nonneg(x) for x in particles)
 
         dTSS = transport_mod.apply_exchange(
             tss, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
@@ -727,21 +727,21 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         dp0 = params.disinfection
         dp = replace(_aligned(dp0, T), k_cl=dp0.k_cl, k_uv=dp0.k_uv)
         path, ct_min, age_s, toc, thm = disinfection
-        path = torch.clamp(path, min=0.0)
-        toc = torch.clamp(toc, min=0.0)
+        path = nonneg(path)
+        toc = nonneg(toc)
 
         # organics exert a chlorine demand; a pH-enhanced yield of it
         # becomes THMs and TOC is consumed stoichiometrically
         r_dem = disinfection_mod.chlorine_demand_rate(toc, Cl, T, dp)
         dCl = dCl - r_dem
         dTOC = species(toc, boundary.inlet_toc, -dp.s_toc * r_dem)
-        dTHM = species(torch.clamp(thm, min=0.0), boundary.inlet_thm,
+        dTHM = species(nonneg(thm), boundary.inlet_thm,
                        disinfection_mod.thm_formation_rate(r_dem, pH, dp))
 
         # CT credit and water age as advected scalars
-        dCTcred = species(torch.clamp(ct_min, min=0.0), boundary.inlet_ct,
+        dCTcred = species(nonneg(ct_min), boundary.inlet_ct,
                           Cl / disinfection_mod.SECONDS_PER_MIN)
-        dAge = species(torch.clamp(age_s, min=0.0), boundary.inlet_age,
+        dAge = species(nonneg(age_s), boundary.inlet_age,
                        torch.ones_like(T))
 
         # pathogen classes [..., P, Z]: mixing/advection over the class
@@ -765,7 +765,7 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         # Planktonic biomass and substrate are bulk species; the wall film
         # is attached (zone-local). All rates are slow: no operator split.
         bp = _aligned(params.biofilm, T)
-        x_b, s_b, b_w = (torch.clamp(x, min=0.0) for x in biofilm)
+        x_b, s_b, b_w = (nonneg(x) for x in biofilm)
 
         # colonizable area-to-volume ratio [m2/L]: the thermal model's
         # lateral + ends area split evenly across zones
@@ -823,14 +823,13 @@ def _enforce_bounds(pH, Cl, T, phase=None):
     """Physical bound clipping. With the phase axis on, the [0, 100]
     temperature clip widens to [t_min, t_boil + delta_boil]."""
     if phase is None:
-        t_clip = torch.clip(T, 0.0, 100.0)
+        t_clip = clip(T, 0.0, 100.0)
     else:
-        t_clip = torch.minimum(
-            torch.maximum(T, align_trailing(phase.t_min, T)),
-            align_trailing(phase.t_boil + phase.delta_boil, T))
+        t_clip = clip(T, align_trailing(phase.t_min, T),
+                      align_trailing(phase.t_boil + phase.delta_boil, T))
     return (
-        torch.clip(pH, 0.0, 14.0),
-        torch.clamp(Cl, min=0.0),
+        clip(pH, 0.0, 14.0),
+        nonneg(Cl),
         t_clip,
     )
 
@@ -863,7 +862,7 @@ def step(params: ReactorParams, state: ReactorState,
     else:
         out = integrators.integrate_rkc(f, y, dt, substeps, stages)
     pH, Cl, T = _enforce_bounds(*out[:3], phase=params.phase)
-    ext = {name: torch.clamp(x, min=0.0)
+    ext = {name: nonneg(x)
            for axis, sl in spans.items()
            for name, x in zip(EXTENSION_STATE[axis], out[sl])}
 
@@ -892,17 +891,16 @@ def step(params: ReactorParams, state: ReactorState,
             Cl, ext["ammonia"], pH, T, align_trailing(params.chem.Ka_HOCl,
                                                       pH),
             _aligned(params.nitrogen, pH), dt)
-        Cl = torch.clamp(Cl - x_mol * nitrogen_mod._CL2_MGL_PER_MOL,
-                         min=0.0)
-        ext["ammonia"] = torch.clamp(
-            ext["ammonia"] - x_mol * nitrogen_mod._N_MGL_PER_MOL, min=0.0)
+        Cl = nonneg(Cl - x_mol * nitrogen_mod._CL2_MGL_PER_MOL)
+        ext["ammonia"] = nonneg(
+            ext["ammonia"] - x_mol * nitrogen_mod._N_MGL_PER_MOL)
         ext["chloramine"] = ext["chloramine"] \
             + x_mol * nitrogen_mod._CL2_MGL_PER_MOL
         k_split = params.chem
         if "gas" in spans:
             k_split = replace(k_split, C_T_mol=ext["carbonate"] * 1e-3)
         beta = chem.buffering_capacity(pH, k_split)
-        pH = torch.clip(
+        pH = clip(
             pH - nitrogen_mod.H_PER_N_CHLORAMINE * x_mol / (beta * LN10),
             0.0, 14.0)
 
@@ -928,16 +926,34 @@ def _stack(records):
             for key in ("pH", "chlorine", "temperature")}
 
 
+def _stepper(remat: bool):
+    """``step``, or with ``remat`` ``step`` under
+    ``torch.utils.checkpoint``: reverse-mode differentiation then keeps
+    only each step's input state and recomputes the step's intermediates
+    (every substep's) in the backward pass, at the cost of one more
+    forward evaluation (``jax.checkpoint`` of the scan body in the JAX
+    package)."""
+    if not remat:
+        return step
+
+    def checkpointed(*args, **kw):
+        return checkpoint(step, *args, use_reentrant=False, **kw)
+    return checkpointed
+
+
 def rollout(params: ReactorParams, state: ReactorState,
             boundary: BoundaryConditions, dt: float, substeps: int,
             n_steps: int, record: bool = True,
-            stages: Optional[int] = None):
+            stages: Optional[int] = None, remat: bool = False):
     """Loop ``step`` over ``n_steps``. Returns ``(final_state, trajectory)``
     where the trajectory stacks the primary variables per step
-    (``[n_steps, ..., Z]``), or is ``None`` when ``record=False``."""
+    (``[n_steps, ..., Z]``), or is ``None`` when ``record=False``.
+    ``remat=True`` checkpoints each step (``_stepper``) for long-horizon
+    gradients."""
+    advance = _stepper(remat)
     records = []
     for _ in range(n_steps):
-        state = step(params, state, boundary, dt, substeps, stages=stages)
+        state = advance(params, state, boundary, dt, substeps, stages=stages)
         if record:
             records.append(_record(state))
     return state, (_stack(records) if record else None)
@@ -960,11 +976,12 @@ def schedule_length(schedule: BoundaryConditions) -> int:
 def rollout_scheduled(params: ReactorParams, state: ReactorState,
                       schedule: BoundaryConditions, dt: float,
                       substeps: int, record: bool = True,
-                      stages: Optional[int] = None):
+                      stages: Optional[int] = None, remat: bool = False):
     """Loop ``step`` over a time-varying boundary-condition schedule: a
     ``BoundaryConditions`` whose fields carry a leading ``[n_steps]`` axis
     (scalar fields hold for every step). Returns ``(final_state,
-    trajectory)`` like ``rollout``."""
+    trajectory)`` like ``rollout``; ``remat`` as there."""
+    advance = _stepper(remat)
     n_steps = schedule_length(schedule)
     device = state.pH.device
     columns = {}
@@ -979,7 +996,7 @@ def rollout_scheduled(params: ReactorParams, state: ReactorState,
         bc = BoundaryConditions(**{
             name: (x[i] if isinstance(x, torch.Tensor) else x)
             for name, x in columns.items()})
-        state = step(params, state, bc, dt, substeps, stages=stages)
+        state = advance(params, state, bc, dt, substeps, stages=stages)
         if record:
             records.append(_record(state))
     return state, (_stack(records) if record else None)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ics_wt_physicsengine_torch.core import constants as c
+from ics_wt_physicsengine_torch.utils.dispatch import absolute, clip
 
 
 @dataclass
@@ -67,7 +68,7 @@ def richardson_number(densities, zone_height, velocity_scale):
     rho_avg = 0.5 * (densities[..., 1:] + densities[..., :-1])
     u = _trail(velocity_scale, densities)
     dz = _trail(zone_height, densities)
-    safe_u2 = (torch.clamp(u, min=1e-6) if xp is torch
+    safe_u2 = (clip(u, 1e-6) if xp is torch
                else np.maximum(u, 1e-6)) ** 2
     ri = c.G_GRAVITY * drho * dz / (rho_avg * safe_u2)
     return xp.where(u > 1e-6, ri, xp.inf)
@@ -109,8 +110,8 @@ def jet_penetration(inlet_velocity, inlet_diameter, tank_height):
         fr = inlet_velocity / torch.sqrt(torch.as_tensor(
             c.G_GRAVITY * inlet_diameter, dtype=like.dtype,
             device=like.device))
-        return torch.clamp(c.JET_PENETRATION_COEFF * inlet_diameter * fr,
-                           max=tank_height)
+        return clip(c.JET_PENETRATION_COEFF * inlet_diameter * fr,
+                    hi=tank_height)
     fr = inlet_velocity / np.sqrt(np.asarray(c.G_GRAVITY * inlet_diameter))
     return np.minimum(c.JET_PENETRATION_COEFF * inlet_diameter * fr,
                       tank_height)
@@ -120,7 +121,7 @@ def spatial_gradients(parameter, zone_height) -> Dict[str, object]:
     """Gradient statistics of a zone profile."""
     if isinstance(parameter, torch.Tensor):
         p = parameter
-        grads = ((p[..., 1:] - p[..., :-1]) / zone_height).abs()
+        grads = absolute((p[..., 1:] - p[..., :-1]) / zone_height)
         stats = dict(mean=p.mean(dim=-1), std=p.std(dim=-1, unbiased=False),
                      max=p.amax(dim=-1), min=p.amin(dim=-1),
                      gmax=grads.amax(dim=-1), gmean=grads.mean(dim=-1),
@@ -153,7 +154,7 @@ def interpolate_to_elevation(parameter, zone_centers, elevation):
         at = torch.as_tensor(elevation, dtype=p.dtype, device=p.device)
         n = zc.shape[-1]
         # clamp so extrapolation reuses the end segments
-        idx = torch.clamp(torch.searchsorted(zc, at) - 1, 0, n - 2)
+        idx = clip(torch.searchsorted(zc, at) - 1, 0, n - 2)
         elevation = at
     else:
         p, zc = np.asarray(parameter), np.asarray(zone_centers)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ics_wt_physicsengine_torch.core import constants as c
-from ics_wt_physicsengine_torch.utils.dispatch import align_trailing
+from ics_wt_physicsengine_torch.utils.dispatch import align_trailing, clip
 
 # Module-level aliases of the reference simulator's names; the values live
 # in core/constants.py.
@@ -36,7 +36,7 @@ def _exp(x):
 def celsius_to_kelvin(temp_c):
     """C -> K, clamped to the liquid-water range [0, 100] C."""
     if isinstance(temp_c, torch.Tensor):
-        return torch.clip(temp_c, c.T_MIN_C, c.T_MAX_C) + 273.15
+        return clip(temp_c, c.T_MIN_C, c.T_MAX_C) + 273.15
     return np.clip(temp_c, c.T_MIN_C, c.T_MAX_C) + 273.15
 
 

@@ -38,7 +38,7 @@ from ics_wt_physicsengine_torch.sensors import temperature as ST
 from ics_wt_physicsengine_torch.sensors import turbidity as STB
 from ics_wt_physicsengine_torch.sensors.types import (InstallationQuality,
                                                       SampleLine)
-from ics_wt_physicsengine_torch.utils.dispatch import map_tensors
+from ics_wt_physicsengine_torch.utils.dispatch import checkpointed, map_tensors
 
 
 @dataclass(frozen=True)
@@ -287,14 +287,24 @@ def _stack_values(records):
 def plant_rollout(params: PlantParams, plant: PlantState,
                   boundary: R.BoundaryConditions, dt: float, substeps: int,
                   n_steps: int, record: bool = True, stages=None,
-                  generator=None):
+                  generator=None, remat: bool = False):
     """Loop ``plant_step`` over ``n_steps``. Returns ``(plant, readings)``
     where readings maps each sensor name to its measured values
-    ``[n_steps, ...]`` (None when ``record=False``)."""
+    ``[n_steps, ...]`` (None when ``record=False``). ``remat=True``
+    checkpoints each step for long-horizon gradients
+    (``utils.dispatch.checkpointed``: the backward pass recomputes the
+    step with the same noise)."""
     records = []
     for _ in range(n_steps):
-        plant, readings = plant_step(params, plant, boundary, dt, substeps,
-                                     stages=stages, generator=generator)
+        if remat:
+            plant, readings = checkpointed(
+                lambda p, generator: plant_step(
+                    params, p, boundary, dt, substeps, stages=stages,
+                    generator=generator), plant, generator=generator)
+        else:
+            plant, readings = plant_step(params, plant, boundary, dt,
+                                         substeps, stages=stages,
+                                         generator=generator)
         if record:
             records.append({k: v.value for k, v in readings.items()})
     return plant, (_stack_values(records) if record and records else None)
@@ -409,6 +419,8 @@ def plant_step_batched(params: PlantParams, plant: PlantState,
     n_plants = plant.reactor.pH.shape[0]
     for f in fields(boundary):
         x = getattr(boundary, f.name)
+        if x is None:               # an unset per-class inlet vector
+            continue
         ndim = getattr(x, "ndim", 0)
         if boundary_axes is None and ndim:
             raise ValueError(f"boundary.{f.name} has a leading axis; pass "

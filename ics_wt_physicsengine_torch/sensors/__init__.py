@@ -2,7 +2,9 @@
 pipeline ``base``; the pH, chlorine, flow and temperature overlays; the
 ammonia, oxygen and turbidity overlays of the extension axes; the
 ``electrical`` transmission stage), the reference simulator's sensor classes
-over them (``wrappers``), and the suite factory of the canonical plant."""
+over them (``wrappers``), the physical sample line (``sampleline``: derived
+heat transfer and in-line decay, host-side), and the suite factory of the
+canonical plant."""
 
 from typing import Optional
 
@@ -39,6 +41,11 @@ from ics_wt_physicsengine_torch.sensors.wrappers import (  # noqa: F401
     TemperatureSensor,
     TurbiditySensor,
     pHSensor,
+)
+from ics_wt_physicsengine_torch.sensors.sampleline import (  # noqa: F401
+    LineThermalConfig,
+    PhysicalSampleLine,
+    validate_sample_line,
 )
 from ics_wt_physicsengine_torch.sensors.ammonia import (  # noqa: F401
     validate_ammonia_sensor,

@@ -465,17 +465,6 @@ def test_print_diagnostics_equals_jax_apart_from_the_banner(capsys):
 
 # JAX-package names without a counterpart, each with where it waits.
 WAITS = {
-    "core": {
-        "queue A item 6g (core/network.py)": {
-            "NetworkState", "NetworkTopology", "make_network", "network_step",
-            "rollout_network", "rollout_network_scheduled",
-            "topology_arrays"},
-    },
-    "sensors": {
-        "queue A item 6g (sensors/sampleline.py)": {
-            "LineThermalConfig", "PhysicalSampleLine",
-            "validate_sample_line"},
-    },
     "sensors.validation": {
         "kept once, in sensors/__init__.py": {
             "ChlorineSensorType", "FlowSensorType", "TemperatureSensorType"},
@@ -490,7 +479,10 @@ PORTED = ("core", "core.thermodynamics", "core.chemistry", "core.transport",
           "core.particles", "core.disinfection", "core.biofilm",
           "core.phase", "sensors", "sensors.electrical", "sensors.wrappers",
           "sensors.validation", "sensors.ammonia", "sensors.oxygen",
-          "sensors.turbidity", "ops.ph_solver")
+          "sensors.turbidity", "ops.ph_solver", "core.network",
+          "sensors.sampleline", "control", "control.pid",
+          "control.estimator", "control.closed_loop", "control.tuning",
+          "control.ekf", "control.enkf", "control.mhe", "control.mpc")
 
 
 def _public_names(module, package: bool):
@@ -514,7 +506,8 @@ def test_every_public_name_has_a_counterpart_or_waits(name):
     ref = importlib.import_module(f"ics_wt_physicsengine_tpu.{name}")
     port = importlib.import_module(f"ics_wt_physicsengine_torch.{name}")
     waits = set().union(*WAITS.get(name, {}).values())
-    public = set(_public_names(ref, package=name in ("core", "sensors")))
+    public = set(_public_names(ref, package=name in ("core", "sensors",
+                                                     "control")))
     assert len(public) >= 3
     missing = sorted(n for n in public - waits if not hasattr(port, n))
     assert not missing, f"{name}: no counterpart for {missing}"

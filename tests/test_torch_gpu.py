@@ -1,7 +1,8 @@
 """Kernels B1, B2, B3 and B4 on the CUDA card against their plain PyTorch versions
 on the same inputs (the kernels have no CPU mode, so these tests skip
-without a card), and the six extension axes' plain path on the card. This file imports no JAX: the machine with the card has
-none. Run it there with
+without a card), and the plain paths of the six extension axes and of the
+control package on the card against the CPU. This file imports no JAX: the
+machine with the card has none. Run it there with
 
     python -m pytest -m gpu --noconftest -p no:randomly tests/test_torch_gpu.py
 
@@ -428,3 +429,23 @@ def test_ten_instrument_plant_step_on_the_card(cuda):
         assert bool(torch.isfinite(readings[name].value))
     assert bool(torch.isfinite(plant.reactor.pathogens).all())
     assert not any(FP.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("case", ["closed loop", "EKF step", "MHE step"])
+def test_control_on_the_card_matches_the_cpu(cuda, case):
+    """The control path (plain PyTorch, no fused kernel) in float64 on the
+    card and on the CPU: a closed-loop gain sweep, a bank of EKF steps
+    (vmap of jacfwd of the plant step) and an MHE step, every output
+    within rtol 1e-9, atol 1e-12."""
+    from ics_wt_physicsengine_torch.control import device_checks as DC
+
+    for counts in (F.reset_launch_counts, FP.reset_launch_counts,
+                   PS.reset_launch_counts):
+        counts()
+    card = DC.CASES[case](cuda)
+    assert not any({**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}.values())
+    host = DC.CASES[case](torch.device("cpu"))
+    assert card.keys() == host.keys()
+    for name in host:
+        torch.testing.assert_close(card[name].cpu(), host[name], rtol=1e-9,
+                                   atol=1e-12, msg=name)

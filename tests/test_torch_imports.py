@@ -1,5 +1,6 @@
 """The PyTorch port, its smoke script, its card-side measurement scripts
-(``tools/torch_*.py``) and its GPU tests import neither JAX nor the JAX package. Checked on the source
+(``tools/torch_*.py``) and its GPU tests import neither JAX, optax (the
+card's machine has none) nor the JAX package. Checked on the source
 (an AST scan): the interpreter may have imported JAX before any test runs,
 so ``sys.modules`` proves nothing."""
 
@@ -9,7 +10,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "ics_wt_physicsengine_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ics_wt_physicsengine_tpu")
 SOURCES = sorted((ROOT / "ics_wt_physicsengine_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"] + sorted(
     (ROOT / "tools").glob("torch_*.py"))
