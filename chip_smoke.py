@@ -103,6 +103,30 @@ Phases:
     float64 on the card against the CPU
     (control/device_checks.py): rtol 1e-9 + atol 1e-12. Phases 5h-5m are
     plain PyTorch and must launch none of B1-B4;
+ 5n. SURR-INFER-65536, bench.py's bench_surrogate inference row: the
+    6-zone residual MLP (hidden (128, 128), random weights with the output
+    layer un-zeroed, bfloat16 products) through surrogate_step on 65,536
+    plants, 256 steps a call, each call fed the last state: plant-steps/s,
+    one step's launches, device time and idle share, its GEMM work and
+    bytes and the bound they set; a step and an 8-step rollout on the card
+    against the CPU, float32 products within 1e-5 of x_std and bfloat16
+    ones (bfloat16 operands multiplied in float32 on both) within 1e-4;
+ 5o. SURR-TRAIN-2048, bench.py's training row: train_surrogate on a
+    synthetic 64 x 65 x 18 set, batch 2048, 200 Adam steps, bfloat16;
+    Adam steps/s, the better of two calls;
+ 5p. SURR-MPC-6, examples/surrogate_mpc.py as written: fit_plant_surrogate
+    (6 zones, dt 30 s, 512 trajectories x 48 steps, 6000 + 600 Adam
+    steps), its held-out one-step skill against the identity predictor
+    (< 0.5 per field), then run_mpc_surrogate on the 90-minute step
+    program (horizon 4 x 15, 20 iterations): the last 15 outlet-chlorine
+    values within a mean 0.15 of 2.5 mg/L. The example's physics-shooting
+    run_mpc comparison is not run (printed; MPC-20 covers that path);
+ 5q. checkpoints on the card: the fitted SurrogateParams saved from CUDA
+    tensors and reloaded into its CUDA template, bit-equal; a 5-zone
+    IntegratedCSTR with its seven sensors saved, reloaded into a reactor
+    and a suite seeded otherwise, and the next 20 ticks equal to those of
+    the run that never stopped. Phases 5n-5q are plain PyTorch and must
+    launch none of B1-B4;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -111,7 +135,7 @@ Launch counts are zeroed just before each run of a main-path entry point
 launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b and 5c. Direct kernel calls (phases 3, 3b and
 3c, the kernel-only times) and phase 6 lie outside those windows; phases
-5d-5m must launch none. Exits non-zero,
+5d-5q must launch none. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -126,6 +150,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -1511,6 +1536,298 @@ def main() -> int:
 
     control_cpu()
 
+    # ---- 5n-5q. the surrogate and the utilities (plain PyTorch, no kernel)
+    from ics_wt_physicsengine_torch.control.ekf import flatten_state
+    from ics_wt_physicsengine_torch.models import surrogate as SG
+    from ics_wt_physicsengine_torch.models import surrogate_checks as SC
+    from ics_wt_physicsengine_torch.sensors import (
+        create_realistic_sensor_suite)
+    from ics_wt_physicsengine_torch.utils import checkpoint as CK
+
+    bf16 = torch.bfloat16
+
+    # SURR-INFER-65536: bench.py's bench_surrogate, inference row
+    @phase("path: surrogate inference")
+    def surr_infer():
+        n_batch, n_steps = SURR_INFER
+        sp = SC.bench_params(device=dev)
+        x0, us = SC.bench_inputs(sp, n_batch, n_steps, device=dev)
+        held = [x0]
+
+        def roll():
+            x = held[0]
+            with torch.no_grad():
+                for t in range(n_steps):
+                    x = SG.surrogate_step(sp, x, us[t], compute_dtype=bf16)
+            held[0] = x            # each call starts from the last state
+            return x
+
+        roll()
+        reset_kernel_counts()
+        ms, x = timed(roll, reps=3)
+        counts = kernel_counts()
+        rate = n_batch * n_steps / (ms / 1e3)
+        step_ms = ms / n_steps
+        with torch.no_grad():
+            prof = step_profile(lambda: SG.surrogate_step(sp, x, us[0], bf16))
+            by_kernel = kernel_breakdown(
+                lambda: SG.surrogate_step(sp, x, us[0], bf16))
+        busy = prof["device_ms"]
+        idle = None if busy is None else 1.0 - busy / step_ms
+        flops = SC.step_flops(sp, n_batch)
+        moved = 2 * x.numel() * x.element_size()       # x in, x out
+        ops_ms = flops / K.PEAK_OPS[bf16] * 1e3
+        bytes_ms = moved / HBM_RATE * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        worst = SC.card_vs_cpu(dev)
+        ok = (x.shape == x0.shape and bool(torch.isfinite(x).all())
+              and bool(((x >= sp.lo) & (x <= sp.hi)).all()))
+        report["SURR-INFER-65536"] = dict(
+            batch=n_batch, n_steps=n_steps, zones=6, state=x.shape[1],
+            hidden=(128, 128), compute="bfloat16 operands, float32 products",
+            ms_per_call=ms, ms_per_step=step_ms, plant_steps_per_s=rate,
+            launches_per_step=prof["launches"],
+            aten_ops_per_step=prof["aten_ops"], device_ms_per_step=busy,
+            device_idle_share=idle, gemm_flop_per_step=flops,
+            bytes_per_step=moved, bound_ms_per_step=bound_ms,
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            device_ms_by_kernel=by_kernel, card_vs_cpu=worst,
+            kernel_launches=counts)
+        check(ok, f"SURR-INFER-65536 ({n_batch} plants x 6 zones, (128, "
+              f"128) MLP, bfloat16 products, {n_steps} steps a call, 3 "
+              f"chained calls): {rate:.4e} plant-steps/s, "
+              f"{step_ms * 1e3:.1f} us per step; one step launches "
+              f"{prof['launches']} CUDA kernels ({prof['aten_ops']} aten "
+              f"ops), {fmt(busy and busy * 1e3, '.1f')} us of device time "
+              f"(idle share {fmt(idle, '.3f')}); a step's GEMM work "
+              f"{flops / 1e9:.3f} GFLOP and {moved / 1e6:.2f} MB of x in "
+              f"and out, bound {bound_ms * 1e3:.2f} us; states finite and "
+              "inside the physical bounds")
+        check(all(err <= SC.TOLERANCE[getattr(torch, name.split()[1])]
+                  for name, err in worst.items()),
+              "surrogate step (a residual at the state's full spread) and "
+              "8-step rollout (bench.py's network) of 4096 states, card "
+              "against CPU: float32 products within 1e-5 of x_std, "
+              "bfloat16 ones (the CPU's float32 emulation) within 1e-4 ("
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + ")")
+        no_kernel("SURR-INFER-65536", counts)
+        return True
+
+    surr_infer()
+
+    # SURR-TRAIN-2048: bench.py's bench_surrogate, training row
+    @phase("path: surrogate training")
+    def surr_train():
+        sp = SC.bench_params()
+        n = sp.x_mean.shape[0]
+        g = torch.Generator().manual_seed(3)
+        X = (sp.x_mean + sp.x_std * torch.randn((64, 65, n), generator=g)
+             ).to(dev)
+        U = torch.rand((64, 64, 1), generator=g).to(dev)
+
+        def train(seed, n_steps):
+            out = SG.train_surrogate(X, U, 6, seed=seed, hidden=(128, 128),
+                                     n_steps=n_steps, batch_size=2048,
+                                     rollout_steps=0, compute_dtype=bf16)
+            torch.cuda.synchronize()
+            return out
+
+        reset_kernel_counts()
+        seconds, runs = [], []
+        for seed in (1, 2):
+            t0 = time.perf_counter()
+            runs.append(train(seed, SURR_TRAIN_STEPS))
+            seconds.append(time.perf_counter() - t0)
+        counts = kernel_counts()
+        rate = SURR_TRAIN_STEPS / min(seconds)
+        # one Adam step: the difference of an 11-step and a 1-step call
+        p1, p11 = step_profile(lambda: train(1, 1)), \
+            step_profile(lambda: train(1, 11))
+        per = {k: (None if p1[k] is None or p11[k] is None
+                   else (p11[k] - p1[k]) / 10)
+               for k in ("launches", "device_ms", "aten_ops")}
+        step_ms = min(seconds) / SURR_TRAIN_STEPS * 1e3
+        idle = None if per["device_ms"] is None \
+            else 1.0 - per["device_ms"] / step_ms
+        # forward and backward products: 3 x a forward's
+        flops = 3 * SC.step_flops(sp, 2048)
+        sp1, info = runs[0]
+        losses = info["one_step_loss"]
+        ok = (losses.shape == (SURR_TRAIN_STEPS,)
+              and bool(torch.isfinite(losses).all())
+              and all(bool(torch.isfinite(w).all()) for w in sp1.weights)
+              and float(sp1.weights[-2].abs().max()) > 0)
+        report["SURR-TRAIN-2048"] = dict(
+            X=(64, 65, n), batch=2048, adam_steps=SURR_TRAIN_STEPS,
+            seconds=seconds, adam_steps_per_s=rate, ms_per_step=step_ms,
+            launches_per_step=per["launches"],
+            aten_ops_per_step=per["aten_ops"],
+            device_ms_per_step=per["device_ms"], device_idle_share=idle,
+            gemm_flop_per_step=flops,
+            bound_ms_per_step=flops / K.PEAK_OPS[bf16] * 1e3,
+            first_last_loss=(float(losses[0]), float(losses[-1])),
+            kernel_launches=counts)
+        check(ok, f"SURR-TRAIN-2048 (X 64 x 65 x {n}, batch 2048, "
+              f"{SURR_TRAIN_STEPS} Adam steps, bfloat16 products): "
+              f"{rate:.1f} Adam steps/s (the better of 2 calls: "
+              f"{seconds[0]:.2f} s, {seconds[1]:.2f} s); one step launches "
+              f"{fmt(per['launches'], '.0f')} CUDA kernels "
+              f"({fmt(per['aten_ops'], '.0f')} aten ops), "
+              f"{fmt(per['device_ms'], '.3f')} ms of device time (idle "
+              f"share {fmt(idle, '.3f')}); losses and weights finite")
+        no_kernel("SURR-TRAIN-2048", counts)
+        return True
+
+    surr_train()
+
+    # SURR-MPC-6: examples/surrogate_mpc.py as written, without its
+    # physics-shooting comparison
+    @phase("path: surrogate-planned MPC")
+    def surr_mpc():
+        cfg = R.ReactorConfiguration(
+            volume=1000.0, n_zones=6, flow_rate=5.0, initial_pH=7.2,
+            initial_chlorine=2.0, temperature=20.0)
+        dt, Z = 30.0, 6
+        print("  SURR-MPC-6: the example's physics-shooting run_mpc "
+              "comparison is not run (about 10^8 launches at this horizon; "
+              "MPC-20 covers that path)")
+        reset_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, info = SG.fit_plant_surrogate(cfg, dt=dt, seed=0, device=dev,
+                                          **SURR_FIT)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        params = R.make_params(cfg, dtype=f32, device=dev)
+        substeps = R.default_substeps(cfg, dt)
+        Xv, Uv = SG.make_surrogate_dataset(
+            params, Z, R.BoundaryConditions(), 123, 32, SURR_FIT["n_steps"],
+            dt, substeps)
+        with torch.no_grad():
+            err = SG.surrogate_step(sp, Xv[:, :-1], Uv) - Xv[:, 1:]
+            res = Xv[:, 1:] - Xv[:, :-1]
+            drift = SG.surrogate_rollout(sp, Xv[:, 0], Uv.transpose(0, 1)) \
+                - Xv[:, 1:].transpose(0, 1)
+        skill = {f: float(err[..., i * Z:(i + 1) * Z].std(correction=0)
+                          / res[..., i * Z:(i + 1) * Z].std(correction=0))
+                 for i, f in enumerate(("pH", "chlorine", "temperature"))}
+        drift_cl = float(drift[..., Z:2 * Z].std(correction=0))
+        n_steps = SURR_MINUTES * 2
+        n_steps -= n_steps % 15
+        half = (n_steps // 2) - ((n_steps // 2) % 15)
+        program = torch.cat([
+            torch.full((half,), 1.5, device=dev),
+            torch.full((n_steps - half,), 2.5, device=dev)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sur = SG.run_mpc_surrogate(cfg, sp, program, dt=dt,
+                                   horizon_moves=4, steps_per_move=15,
+                                   iters=20, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        x0 = flatten_state(R.make_initial_state(cfg, dtype=f32, device=dev))
+        plan_ms, (moves, costs) = timed(lambda: SG.surrogate_mpc_plan(
+            sp, x0, {("chlorine", -1): program[:60]},
+            torch.full((4, 1), 0.2, device=dev), dt, Z, 15, iters=20))
+        counts = kernel_counts()
+        cl = sur["chlorine_outlet"]
+        track = float((cl[-15:] - 2.5).abs().mean())
+        n_plans = n_steps // 15
+        ok = (bool(torch.isfinite(cl).all()) and cl.shape == (n_steps,)
+              and bool(torch.isfinite(costs).all())
+              and bool(((moves >= 0) & (moves <= 1.0)).all()))
+        report["SURR-MPC-6"] = dict(
+            zones=Z, dt=dt, substeps=substeps, fit=dict(SURR_FIT),
+            fit_seconds=fit_s,
+            val_rmse={k: float(v) for k, v in info["val_rmse"].items()},
+            one_step_skill_vs_identity=skill,
+            open_loop_drift_chlorine_mgL=drift_cl, program_steps=n_steps,
+            horizon_moves=4, steps_per_move=15, iters=20,
+            run_seconds=run_s, replans=n_plans,
+            run_seconds_per_replan=run_s / n_plans, replan_ms=plan_ms,
+            score_ISE=sur["score"], last_segment_mean_abs_error=track,
+            cut="the physics-shooting run_mpc comparison is not run",
+            kernel_launches=counts)
+        check(ok and all(v < 0.5 for v in skill.values()),
+              f"SURR-MPC-6 fit (6 zones, dt 30 s, {substeps} substeps, "
+              f"{SURR_FIT['n_traj']} trajectories x {SURR_FIT['n_steps']} "
+              f"steps, {SURR_FIT['train_steps']} + "
+              f"{SURR_FIT['rollout_steps']} Adam steps): {fit_s:.1f} s; "
+              "held-out one-step skill against the identity predictor "
+              + ", ".join(f"{k} {v:.3f}" for k, v in skill.items())
+              + f" (< 0.5); open-loop chlorine drift {drift_cl:.4f} mg/L")
+        check(ok and track < 0.15,
+              f"SURR-MPC-6 run_mpc_surrogate ({SURR_MINUTES} min program, "
+              f"horizon 4 x 15, 20 iterations, {n_plans} re-plans): "
+              f"{run_s:.1f} s ({run_s / n_plans:.2f} s per re-plan with its "
+              f"15 plant steps; one re-plan alone {plan_ms / 1e3:.2f} s); "
+              f"score {sur['score']:.2f}; last 15 outlet-chlorine values "
+              f"within a mean {track:.3f} of 2.5 mg/L (< 0.15)")
+        no_kernel("SURR-MPC-6", counts)
+        return sp
+
+    fitted = surr_mpc()
+
+    @phase("path: checkpoints on the card")
+    def checkpoints():
+        reset_kernel_counts()
+        sp = fitted if fitted is not None else SC.bench_params(device=dev)
+        cfg = R.ReactorConfiguration()
+        bc = R.BoundaryConditions(acid_flow_rate=0.2,
+                                  chlorine_flow_rate=0.05)
+
+        def suite(seed):
+            sensors = create_realistic_sensor_suite(cfg, seed=seed,
+                                                    device=dev)
+            for s in sensors.values():
+                s.calibrate(7.0, 0.0)
+            return sensors
+
+        def ticks(r, sensors, t0, n):
+            out = []
+            for i in range(n):
+                r.step(1.0, bc)
+                out.append([s.read(r.state, t0 + i).value
+                            for s in sensors.values()])
+            return np.asarray(out), r.state
+
+        with tempfile.TemporaryDirectory() as d:
+            CK.save_pytree(os.path.join(d, "sp.npz"), sp)
+            back = CK.load_pytree(os.path.join(d, "sp.npz"), sp)
+            sp_ok = all(a.device == b.device and torch.equal(a, b)
+                        for a, b in zip(CK.tree_leaves(back),
+                                        CK.tree_leaves(sp)))
+            r1 = R.IntegratedCSTR(cfg, device=dev)
+            s1 = suite(3)
+            ticks(r1, s1, 2000.0, 10)
+            CK.save_simulation(os.path.join(d, "sim.npz"), r1, sensors=s1)
+            want, st1 = ticks(r1, s1, 2010.0, 20)
+            r2 = R.IntegratedCSTR(cfg, device=dev)
+            s2 = suite(999)
+            CK.load_simulation(os.path.join(d, "sim.npz"), r2, sensors=s2)
+            got, st2 = ticks(r2, s2, 2010.0, 20)
+        counts = kernel_counts()
+        sim_ok = (bool(np.isfinite(got).all())
+                  and np.array_equal(got, want) and all(
+            torch.equal(getattr(st1, k), getattr(st2, k))
+            for k in ("pH", "chlorine", "temperature", "time"))
+            and st2.pH.device.type == dev.type)
+        report["checkpoints_on_the_card"] = dict(
+            surrogate_leaves=len(CK.tree_leaves(sp)), surrogate_equal=sp_ok,
+            simulation_resumed_equal=sim_ok, sensors=len(s1),
+            kernel_launches=counts)
+        check(sp_ok, f"the fitted SurrogateParams ({len(CK.tree_leaves(sp))}"
+              " CUDA tensors) saved and reloaded into its CUDA template: "
+              "every leaf bit-equal, on the card")
+        check(sim_ok, "IntegratedCSTR (5 zones) and its seven sensors on "
+              "the card, saved after 10 ticks and reloaded into a reactor "
+              "and a suite seeded otherwise: the next 20 ticks' states and "
+              "readings equal those of the run that never stopped")
+        no_kernel("checkpoints on the card", counts)
+        return True
+
+    checkpoints()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -1564,6 +1881,13 @@ CONTROL_WINDOW_S = 12.0
 # MPC-20's horizon_moves, steps_per_move and Adam iterations (cut from 6,
 # 10, 20: a 60 s step takes 121 RK4 substeps of plain PyTorch)
 MPC_CUT = (1, 10, 1)
+# SURR-INFER-65536's batch and steps a call (bench.py's)
+SURR_INFER = (65536, 256)
+# SURR-TRAIN-2048's Adam steps a call (bench.py's)
+SURR_TRAIN_STEPS = 200
+# SURR-MPC-6's fit and program (examples/surrogate_mpc.py's defaults)
+SURR_FIT = dict(n_traj=512, n_steps=48, train_steps=6000, rollout_steps=600)
+SURR_MINUTES = 90
 
 
 def fmt(x, spec):
@@ -1600,6 +1924,29 @@ def step_profile(fn) -> dict:
     return dict(aten_ops=Count.n, wall_ms=wall_ms,
                 launches=len(kernels) if kernels else None,
                 device_ms=device_ms if kernels else None)
+
+
+def kernel_breakdown(fn, top: int = 8) -> dict:
+    """Device milliseconds of one call of ``fn`` by CUDA kernel name (the
+    ``top`` largest, and the rest summed), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    sums: dict = {}
+    for e in prof.events():
+        if getattr(e.device_type, "name", "") == "CUDA":
+            sums[e.name] = sums.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    names = sorted(sums, key=sums.get, reverse=True)
+    out = {n[:80]: sums[n] for n in names[:top]}
+    if len(names) > top:
+        out["(the rest)"] = sum(sums[n] for n in names[top:])
+    return out
 
 
 def finish(kernels, card) -> int:

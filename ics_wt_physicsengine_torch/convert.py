@@ -213,3 +213,21 @@ def plant_state_from_numpy(values, dtype=None, device=None):
         reactor=state_from_numpy(values["reactor"], dtype=dtype,
                                  device=device),
         **_sensors(values, 1, sensor_carry_from_numpy, dtype, device))
+
+
+_SURROGATE_STATS = ("x_mean", "x_std", "u_scale", "r_mean", "r_std", "lo",
+                    "hi")
+
+
+def surrogate_params_from_numpy(values, dtype=None, device=None):
+    """``models.surrogate.SurrogateParams`` from a mapping of its fields:
+    ``weights``, the sequence ``(W, b, W, b, ...)``, becomes float32 (the
+    MLP's type in both packages); the seven statistics take ``dtype``."""
+    from ics_wt_physicsengine_torch.models.surrogate import SurrogateParams
+
+    dev = resolve_device(device)
+    return SurrogateParams(
+        weights=tuple(tensor_from_numpy(w, torch.float32, dev)
+                      for w in values["weights"]),
+        **{name: tensor_from_numpy(values[name], dtype, dev)
+           for name in _SURROGATE_STATS})

@@ -619,8 +619,10 @@ TITRATION_MIN_PAIRS = 0.6
 
 # Peaks of one H100 SXM at 700 W (NVIDIA's data sheet): non-tensor
 # operations a second by type (FP64 is 132 SMs x 64 lanes x 2 x 1.98 GHz;
-# the sheet rounds it to 34 TFLOP/s) and device memory bytes a second.
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 33.5e12}
+# the sheet rounds it to 34 TFLOP/s), the dense bfloat16 tensor-core rate
+# (the surrogate's products) and device memory bytes a second.
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 33.5e12,
+            torch.bfloat16: 989e12}
 HBM_RATE = 3.35e12
 
 

@@ -1,7 +1,8 @@
 """Kernels B1, B2, B3 and B4 on the CUDA card against their plain PyTorch versions
 on the same inputs (the kernels have no CPU mode, so these tests skip
-without a card), and the plain paths of the six extension axes and of the
-control package on the card against the CPU. This file imports no JAX: the
+without a card), the plain paths of the six extension axes, of the
+control package and of the surrogate on the card against the CPU, and
+checkpoints saved from the card. This file imports no JAX: the
 machine with the card has none. Run it there with
 
     python -m pytest -m gpu --noconftest -p no:randomly tests/test_torch_gpu.py
@@ -449,3 +450,72 @@ def test_control_on_the_card_matches_the_cpu(cuda, case):
     for name in host:
         torch.testing.assert_close(card[name].cpu(), host[name], rtol=1e-9,
                                    atol=1e-12, msg=name)
+
+
+def test_surrogate_on_the_card_matches_the_cpu(cuda):
+    """The surrogate (plain PyTorch, no fused kernel) at bench.py's 6-zone
+    (128, 128) network: one step (a residual at the state's full spread)
+    and an 8-step rollout (bench.py's network) of 4096 states on the card
+    against the CPU, float32 products within 1e-5 of x_std and bfloat16
+    ones (bfloat16 operands multiplied in float32 on both) within 1e-4."""
+    from ics_wt_physicsengine_torch.models import surrogate_checks as SC
+
+    for counts in (F.reset_launch_counts, FP.reset_launch_counts,
+                   PS.reset_launch_counts):
+        counts()
+    worst = SC.card_vs_cpu(cuda)
+    assert not any({**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}.values())
+    for name, err in worst.items():
+        dtype = getattr(torch, name.split()[1])
+        assert err <= SC.TOLERANCE[dtype], (name, err)
+
+
+def test_checkpoints_from_the_card_reload_bit_equal(cuda, tmp_path):
+    """SurrogateParams and a reactor with its seven sensors, saved from
+    CUDA tensors and reloaded into CUDA templates: every leaf equal, on the
+    card, and the resumed simulation reads as the one that never
+    stopped."""
+    from ics_wt_physicsengine_torch.models import surrogate_checks as SC
+    from ics_wt_physicsengine_torch.sensors import (
+        create_realistic_sensor_suite)
+    from ics_wt_physicsengine_torch.utils import checkpoint as CK
+
+    sp = SC.bench_params(device=cuda)
+    path = str(tmp_path / "sp.npz")
+    CK.save_pytree(path, sp)
+    back = CK.load_pytree(path, sp)
+    for a, b in zip(CK.tree_leaves(back), CK.tree_leaves(sp)):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+    config = R.ReactorConfiguration(n_zones=5)
+    bc = R.BoundaryConditions(acid_flow_rate=0.2, chlorine_flow_rate=0.05)
+
+    def suite(seed):
+        sensors = create_realistic_sensor_suite(config, seed=seed,
+                                                device=cuda)
+        for s in sensors.values():
+            s.calibrate(7.0, 0.0)
+        return sensors
+
+    def ticks(r, sensors, t0, n):
+        out = []
+        for i in range(n):
+            r.step(1.0, bc)
+            out.append([s.read(r.state, t0 + i).value
+                        for s in sensors.values()])
+        return np.asarray(out), r.state.chlorine.cpu()
+
+    r1 = R.IntegratedCSTR(config, device=cuda)
+    s1 = suite(3)
+    ticks(r1, s1, 2000.0, 10)
+    path = str(tmp_path / "sim.npz")
+    CK.save_simulation(path, r1, sensors=s1)
+    want = ticks(r1, s1, 2010.0, 20)
+    r2 = R.IntegratedCSTR(config, device=cuda)
+    s2 = suite(999)
+    CK.load_simulation(path, r2, sensors=s2)
+    assert r2.state.pH.device.type == "cuda"
+    got = ticks(r2, s2, 2010.0, 20)
+    assert np.isfinite(got[0]).all()
+    np.testing.assert_array_equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])

@@ -35,6 +35,14 @@ def test_port_sources_exist():
     assert all(p.exists() for p in SOURCES)
 
 
+@pytest.mark.parametrize("module", [
+    "models/surrogate.py", "utils/checkpoint.py", "utils/history.py",
+    "utils/netreap.py", "utils/profiling.py", "utils/backend_select.py",
+    "utils/__init__.py", "models/__init__.py"])
+def test_surrogate_and_utility_modules_are_scanned(module):
+    assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):
