@@ -24,8 +24,12 @@ Phases:
     float32 and float64): state,
     every carry column, rebuilt rings, readings, NaN positions; a chained
     plain -> kernel -> plain run; a constant schedule equal to constant
-    forcing; the kernel's Philox stream against the plain one, with its
-    statistics; and the main-path shapes 4096 x 20 and 1 x 20, timed;
+    forcing; the serving chunk (models/plant.py::plant_serve_chunk: one
+    launch, the Philox counter from a step past 2^32, the fault-code
+    record) bit-equal to the plain version, and serving chunks of 16 + 16
+    and 8 + 8 + 12 + 12 + 12 steps equal to one chunk of 32 and of 52; the
+    kernel's Philox stream against the plain one, with its statistics; and
+    the main-path shapes 4096 x 20 and 1 x 20, timed;
  3c. kernel B4 (the Newton pH solve: a lane takes a new element as soon
     as its own is done) against its plain version on the card over
     kernel_checks.B4_CASES, bit for bit (1 to 300,000 waters, 2-D shapes,
@@ -127,15 +131,31 @@ Phases:
     and a suite seeded otherwise, and the next 20 ticks equal to those of
     the run that never stopped. Phases 5n-5q are plain PyTorch and must
     launch none of B1-B4;
+ 5r. SERVE-CHUNK-20, the serving plane as a user starts it: the port's
+    orchestrator (python -m ics_wt_physicsengine_torch) in a thread on the
+    card with --zones 20 --dt 1 --rtf 0 --seed 7 --fused-sensors
+    --serve-chunk 3600, a Modbus port and an OPC UA port, for at least
+    10 s; a Modbus client here checks that simulation_time advances, that
+    an acid_flow_rate command lowers pH_outlet over 12 simulated hours, and,
+    with the loop paused through its simulation_running coil, that OPC UA
+    reads the register's pH_outlet at the same simulation_time; kernel B3
+    launched once per chunk and plant_step never (the launch counts and a
+    call counter); simulated s per wall s, ms a chunk through
+    plant_serve_chunk beside the kernel alone on a chunk's tables, and
+    launches a chunk;
+ 5s. SERVE-TICK, the same command line without --serve-chunk, 60 ticks at
+    --rtf 0: --zones 5 (the object path: IntegratedCSTR and seven sensor
+    objects on the card) and --zones 20 --fused-sensors (plant_step once a
+    tick); ticks/s, no B1-B4 launch;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b and 5c. Direct kernel calls (phases 3, 3b and
-3c, the kernel-only times) and phase 6 lie outside those windows; phases
-5d-5q must launch none. Exits non-zero,
+the sum over phases 4, 5, 5b, 5c and 5r. Direct kernel calls (phases 3,
+3b and 3c, the kernel-only times) and phase 6 lie outside those windows;
+phases 5d-5q and 5s must launch none. Exits non-zero,
 with no result line, when there is no CUDA card, when the package is
 missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
@@ -148,9 +168,11 @@ import dataclasses
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 
@@ -391,7 +413,7 @@ def main() -> int:
     compare()
 
     def plant_bound(batch, n_steps, substeps, stages, record_every, tables,
-                    bits=False):
+                    bits=False, faults=False):
         """``(bound_ms, bound_by)`` of one B3 launch: its operations over
         the FP32 peak against its bytes over the memory rate."""
         ops_ms = FP.plant_ops(batch, 20, n_steps, substeps, stages,
@@ -399,7 +421,7 @@ def main() -> int:
         bytes_ms = FP.plant_bytes(
             batch, 20, n_steps, record_every,
             sum(x.shape[0] for x in tables.lead), tables.scheduled,
-            bits) / HBM_RATE * 1e3
+            bits, faults=faults) / HBM_RATE * 1e3
         return max(ops_ms, bytes_ms), \
             "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -414,11 +436,14 @@ def main() -> int:
 
         for name, case in K.B3_CASES.items():
             tol = K.TOL[case.get("dtype", f32)]
-            (plant, readings), d = K.b3_vs_plain(case, dev)
+            got, d = K.b3_vs_plain(case, dev)
+            plant, readings = got[:2]
             values = torch.stack([v.reshape(v.shape[0], -1)
                                   for v in readings.values()])
             nan_share = float(torch.isnan(values).double().mean())
             rows.append(dict(case=name, nan_share=nan_share, **d))
+            if case.get("faults"):   # the serving chunk's case: bit-equal
+                tol = 0.0
             check(held(d, tol)
                   and bool(torch.isfinite(plant.reactor.pH).all()),
                   f"B3 {name} x{K.B3_STEPS}: max|kernel-plain| "
@@ -426,6 +451,16 @@ def main() -> int:
                   f" rings, readings; NaN positions equal: {d['nan_equal']}; "
                   f"integer carries equal: {d['ints_equal']}; "
                   f"{nan_share:.3f} of readings NaN")
+        chunk, d, launches = K.serve_chunk_vs_plain(dev)
+        rows.append(dict(case="serving chunk", launches=launches, **d))
+        check(held(d, 0.0) and launches == 1,
+              "B3 serving chunk (plant_serve_chunk, 1x20 x120, step0 2^32 - "
+              "50, fault record every 7) == plain version bit for bit: max "
+              f"abs diff {d['max_abs_err']:.3e}, {launches} launch")
+        check(K.serve_chunks_invariant(dev)
+              and K.serve_chunks_invariant(dev, sizes=(8, 8, 12, 12, 12)),
+              "B3 serving chunks 16 + 16 == 32 and 8 + 8 + 12 + 12 + 12 == "
+              "52 steps bit for bit (plant, record, last readings)")
         d = K.b3_chained(dev)
         rows.append(dict(case="chained plain-kernel-plain", **d))
         check(held(d, K.TOL[f32]),
@@ -1828,6 +1863,240 @@ def main() -> int:
 
     checkpoints()
 
+    # ---- 5r-5s. the serving plane (python -m ics_wt_physicsengine_torch) --
+    import logging
+
+    import ics_wt_physicsengine_torch.__main__ as orchestrator
+    from ics_wt_physicsengine_torch.modbus import ModbusTcpClient
+    from ics_wt_physicsengine_torch.opcua import OPCUAClient
+
+    def free_port():
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        return port
+
+    class Calls:
+        """Wraps ``owner.attr`` for the length of a ``with``: counts the
+        calls, their first and last times and their host-clock
+        milliseconds (each synchronized with the card)."""
+
+        def __init__(self, owner, attr):
+            self.owner, self.attr = owner, attr
+            self.times, self.ms = [], []
+
+        def __enter__(self):
+            real = getattr(self.owner, self.attr)
+
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                self.times.append(t0)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            self.real = real
+            setattr(self.owner, self.attr, wrapped)
+            return self
+
+        def __exit__(self, *exc):
+            setattr(self.owner, self.attr, self.real)
+
+    def serve(argv):
+        """``orchestrator.main(argv)`` in a thread; returns the thread."""
+        orchestrator.running = True
+        thread = threading.Thread(target=orchestrator.main, args=(argv,),
+                                  daemon=True)
+        thread.start()
+        return thread
+
+    def connect(port, deadline_s=60.0):
+        end = time.time() + deadline_s
+        while time.time() < end:
+            try:
+                return ModbusTcpClient("127.0.0.1", port, timeout=5).connect()
+            except OSError:
+                time.sleep(0.2)
+        return None
+
+    def finite_ph(client, end):
+        """pH_outlet (input register 4) once it holds a reading: an
+        instrument whose fault latched publishes 0 until the next
+        maintenance revives it."""
+        while time.time() < end:
+            v = client.read_float32(4)
+            if v > 0.0:
+                return v
+            time.sleep(0.05)
+        return float("nan")
+
+    def wait_sim(client, target, end):
+        while time.time() < end:
+            t = client.read_float32(100)
+            if t >= target:
+                return t
+            time.sleep(0.05)
+        return client.read_float32(100)
+
+    # SERVE-CHUNK-20: the fast-time serving plane, kernel B3 once a chunk
+    @phase("serving plane: fast-time chunks")
+    def serve_chunks():
+        name = "plant_rollout_fused"
+        chunk = SERVE_CHUNK
+        mb, ua = free_port(), free_port()
+        argv = ["--zones", "20", "--dt", "1", "--rtf", "0", "--seed", "7",
+                "--fused-sensors", "--serve-chunk", str(chunk), "--port",
+                str(mb), "--host", "127.0.0.1", "--opcua", str(ua)]
+        reset_kernel_counts()
+        with Calls(P, "plant_serve_chunk") as chunks, \
+                Calls(P, "plant_step") as steps:
+            t_start = time.perf_counter()
+            thread = serve(argv)
+            client = connect(mb)
+            up_s = time.perf_counter() - t_start
+            out = dict(chunk_steps=chunk, modbus_started=client is not None)
+            check(client is not None,
+                  f"SERVE-CHUNK-20: the Modbus server started ({up_s:.1f} s)")
+            try:
+                if client is not None:
+                    end = time.time() + 60
+                    t0 = client.read_float32(100)
+                    t1 = wait_sim(client, t0 + 2 * chunk, end)
+                    check(t1 >= t0 + 2 * chunk, "SERVE-CHUNK-20: "
+                          f"simulation_time advances ({t0:.0f} -> "
+                          f"{t1:.0f} s)")
+                    # the served rate, over a stretch with no commands
+                    w0, s0 = time.perf_counter(), client.read_float32(100)
+                    time.sleep(SERVE_RATE_WINDOW_S)
+                    w1, s1 = time.perf_counter(), client.read_float32(100)
+                    rate = (s1 - s0) / (w1 - w0)
+                    out["sim_s_per_wall_s"] = rate
+                    # a command moves pH_outlet the expected way
+                    ph0 = finite_ph(client, time.time() + 30)
+                    t_cmd = client.read_float32(100)
+                    client.write_float32(0, 1.5)      # acid_flow_rate
+                    wait_sim(client, t_cmd + 12 * 3600.0, time.time() + 60)
+                    ph1 = finite_ph(client, time.time() + 30)
+                    client.write_float32(0, 0.0)
+                    out.update(ph_outlet_before=ph0, ph_outlet_after=ph1)
+                    check(ph1 < ph0 - 0.4, "SERVE-CHUNK-20: acid_flow_rate "
+                          f"1.5 L/min lowers pH_outlet {ph0:.3f} -> "
+                          f"{ph1:.3f} over 12 simulated hours")
+                    # OPC UA and Modbus read one snapshot with the loop
+                    # paused: the clock, pH_outlet (a live reading where
+                    # one of up to 30 pauses finds it live: the instrument
+                    # latches faults within hours at one read a second and
+                    # publishes 0 until the daily maintenance) and the true
+                    # mid-zone pH, which is always live
+                    names = {100: "simulation_time", 4: "pH_outlet",
+                             2: "pH_middle"}
+                    ua_client = OPCUAClient("127.0.0.1", ua).connect()
+                    try:
+                        for _ in range(30):
+                            client.write_coil(2, False)   # simulation_running
+                            time.sleep(0.2)
+                            mb_vals = {n: client.read_float32(a)
+                                       for a, n in names.items()}
+                            ua_vals = {n: ua_client.read_double(f"u1.{n}")
+                                       for n in names.values()}
+                            client.write_coil(2, True)
+                            if mb_vals["pH_outlet"] > 0.0:
+                                break
+                            time.sleep(0.1)
+                    finally:
+                        ua_client.close()
+                    out.update(opcua_snapshot=ua_vals, modbus_snapshot=mb_vals)
+                    live = "a" if mb_vals["pH_outlet"] > 0.0 else "no"
+                    check(mb_vals == ua_vals and mb_vals["pH_middle"] > 0.0,
+                          f"SERVE-CHUNK-20: OPC UA and the registers read one "
+                          f"snapshot with the loop paused: {ua_vals} ({live} "
+                          "live pH_outlet reading)")
+                    client.close()
+                # at least SERVE_WINDOW_S of serving
+                time.sleep(max(0.0, SERVE_WINDOW_S
+                               - (time.perf_counter() - t_start)))
+            finally:
+                orchestrator.running = False
+                thread.join(timeout=120)
+            served_s = time.perf_counter() - t_start
+        counts = kernel_counts()
+        n_chunks = len(chunks.ms)
+        main_launches[name] += counts[name]
+        check(not thread.is_alive(), "SERVE-CHUNK-20: the serving loop "
+              "stopped when asked")
+        check(n_chunks > 0 and counts == {
+            k: n_chunks * (k == name) for k in counts}
+            and len(steps.ms) == 0,
+            f"SERVE-CHUNK-20: {n_chunks} chunks, launches {counts}: B3 "
+            f"once a chunk, no other kernel; plant_step called "
+            f"{len(steps.ms)} times")
+        # the chunk's kernel alone on a chunk's tables, beside the wrapper
+        params, plant = P.make_plant(R.ReactorConfiguration(n_zones=20),
+                                     dtype=f32, device=dev)
+        sched = orchestrator.build_chunk_schedule(
+            R.BoundaryConditions(), R.BoundaryConditions(acid_flow_rate=0.5),
+            chunk, DT, 0.0, device=dev)[0]
+        m = R.default_substeps(R.ReactorConfiguration(n_zones=20), DT)
+        tables = FP.build_tables(params, plant, sched, dt=DT, n_steps=chunk)
+        kw = dict(dt=DT, substeps=m, n_steps=chunk, seed=7, step0=chunk,
+                  record_faults=True)
+        FP.plant_kernel(tables, **kw)
+        kernel_ms, _ = timed(lambda: FP.plant_kernel(tables, **kw), reps=3)
+        bound, bound_by = plant_bound(1, chunk, m, None, 1, tables,
+                                      faults=True)
+        wrapper = sorted(chunks.ms[1:] or chunks.ms)
+        med = wrapper[len(wrapper) // 2] if wrapper else float("nan")
+        out.update(chunks=n_chunks, served_wall_s=served_s,
+                   b3_launches=counts[name],
+                   launches_per_chunk=counts[name] / max(n_chunks, 1),
+                   wrapper_ms_median=med,
+                   wrapper_ms_first=chunks.ms[0] if chunks.ms else None,
+                   kernel_ms=kernel_ms, bound_ms=bound, bound_by=bound_by,
+                   plant_step_calls=len(steps.ms))
+        report["serve_chunk_20"] = out
+        print(f"  SERVE-CHUNK-20 ({chunk}-step chunks, RK4 {m}x4): "
+              f"{fmt(out.get('sim_s_per_wall_s'), '.4e')} simulated s per "
+              f"wall s; a chunk {med:.2f} ms through plant_serve_chunk "
+              f"(median of {n_chunks}, the first "
+              f"{fmt(out['wrapper_ms_first'], '.1f')} ms), the kernel alone "
+              f"{kernel_ms:.2f} ms, bound {bound:.5f} ms ({bound_by}); "
+              f"{out['launches_per_chunk']:.2f} launches a chunk")
+        return True
+
+    # SERVE-TICK: the per-tick loop, the object path and the fused step
+    @phase("serving plane: per-tick loop")
+    def serve_ticks():
+        out = {}
+        for tag, extra, owner, attr in (
+                ("object-5", ["--zones", "5"], R.IntegratedCSTR, "step"),
+                ("fused-20", ["--zones", "20", "--fused-sensors"], P,
+                 "plant_step")):
+            argv = ["--dt", "1", "--rtf", "0", "--seed", "7", "--duration",
+                    str(SERVE_TICKS), "--port", str(free_port()), "--host",
+                    "127.0.0.1", *extra]
+            reset_kernel_counts()
+            with Calls(owner, attr) as ticks:
+                thread = serve(argv)
+                thread.join(timeout=300)
+            counts = kernel_counts()
+            n = len(ticks.times)
+            rate = (n - 1) / (ticks.times[-1] - ticks.times[0]) \
+                if n > 1 else float("nan")
+            out[tag] = dict(ticks=n, ticks_per_s=rate,
+                            kernel_launches=counts)
+            check(not thread.is_alive() and n == SERVE_TICKS,
+                  f"SERVE-TICK {tag}: {n} ticks at --rtf 0, "
+                  f"{rate:.2f} ticks/s (host clock)")
+            no_kernel(f"SERVE-TICK {tag}", counts)
+        report["serve_tick"] = out
+        return True
+
+    logging.getLogger(orchestrator.__name__).setLevel(logging.ERROR)
+    serve_chunks()
+    serve_ticks()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -1888,6 +2157,12 @@ SURR_TRAIN_STEPS = 200
 # SURR-MPC-6's fit and program (examples/surrogate_mpc.py's defaults)
 SURR_FIT = dict(n_traj=512, n_steps=48, train_steps=6000, rollout_steps=600)
 SURR_MINUTES = 90
+# SERVE-CHUNK-20's steps a chunk, its least serving window and the window
+# over which the served rate is read [s]; SERVE-TICK's ticks a run
+SERVE_CHUNK = 3600
+SERVE_WINDOW_S = 10.0
+SERVE_RATE_WINDOW_S = 3.0
+SERVE_TICKS = 60
 
 
 def fmt(x, spec):

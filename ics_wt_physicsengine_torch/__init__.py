@@ -13,8 +13,15 @@ It imports neither JAX nor the JAX package.
 - ``ops/``      integrators and the CUDA kernels (``csrc/``: fused rollout,
                 fused plant, Newton pH solve), each with its plain PyTorch
                 version.
-- ``models/``   the instrumented plant and Monte-Carlo plant batches.
+- ``models/``   the instrumented plant, Monte-Carlo plant batches, the
+                serving chunk and the learned surrogate.
+- ``control/``  PID, closed loop, tuning, MPC and the state estimators.
+- ``modbus/``, ``opcua/``  the serving planes (Modbus/TCP, RTU, TLS, the
+                native C++ plane; the OPC UA bridge).
+- ``__main__``  the serving orchestrator
+                (``python -m ics_wt_physicsengine_torch``).
 - ``parallel/`` ensemble statistics.
+- ``utils/``    checkpoints, history, profiling, device selection.
 - ``convert``   carries NumPy values (e.g. from the JAX package) across.
 
 Entry points run on the CUDA card unless the caller passes

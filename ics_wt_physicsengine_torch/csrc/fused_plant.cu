@@ -6,11 +6,12 @@
 // of fused_rollout.cuh, then all seven instruments of sensors.cuh read the
 // new state: random words become normals and uniforms, each sensor taps
 // its zone, four sample lines delay their taps through circular histories,
-// the base pipeline and its overlay run, and the readings are recorded
-// every record_every steps. Sensor carries and histories are written back
-// at the end. Forcing is constant (a [10, B] table) or a [n_steps, 10]
-// schedule that all plants share; a constant schedule gives the constant
-// result bit for bit (one boundary_terms on the same values).
+// the base pipeline and its overlay run, and the readings (and, when asked,
+// their fault codes) are recorded every record_every steps. Sensor carries
+// and histories are written back at the end. Forcing is constant (a
+// [10, B] table) or a [n_steps, 10] schedule that all plants share; a
+// constant schedule gives the constant result bit for bit (one
+// boundary_terms on the same values).
 //
 // Design: a block holds plants_per_block (P) whole plants in two kinds of
 // warp, both sized by the wrapper (ops/fused_plant.py::plant_geometry):
@@ -35,9 +36,12 @@
 //   kind shares, runs converged (sensors.cuh).
 // - randomness: lane k generates only the Philox4x32-10 blocks that cover
 //   its own words (3 or 4 of them, 24 a plant-step in place of 19, the
-//   design's extra cost), with the counter (step, plant, block, 0) of the
-//   plant-wide stream; the wrapper passes each sensor's first block and
-//   word skip. Injected words ([n_steps, 76, B]) are read directly.
+//   design's extra cost), with the counter (step0 + step, plant, block, 0)
+//   of the plant-wide stream; the wrapper passes each sensor's first block
+//   and word skip. A serving loop that launches once per chunk passes its
+//   global step count as step0, so that the noise of a run does not depend
+//   on how it is chunked. Injected words ([n_steps, 76, B]) are read
+//   directly and ignore step0.
 // - overlap: after a step's bounds the physics threads publish (pH,
 //   chlorine, temperature) into tap buffer step % 2 and the whole block
 //   meets at one __syncthreads; the sensor lanes then read that buffer
@@ -112,9 +116,11 @@ struct PlantArgs {
   int* carry_int_out;        // [28, B]
   S* hist[kLineSensors];     // [d_max + 1, B], lead-in on entry
   S* readings;               // [n_steps / record_every, 7, B]
+  int* faults;               // [n_steps / record_every, 7, B], or null
   RkcTable<S> rkc;
   PlantStatics statics;
   unsigned long long seed;
+  uint32_t step0;            // the Philox counter of step 0
   int scheduled, stages, batch, n_zones, plants_per_block, physics_threads,
       sensor_stride, n_steps, substeps, record_every;
   StepSizes<S> h;
@@ -359,7 +365,7 @@ __device__ __forceinline__ void sensor_role(
         w[c] = c < n_words ? src[static_cast<int64_t>(c) * batch] : 0u;
       }
     } else {
-      sensor_step_words(a.seed, static_cast<uint32_t>(step),
+      sensor_step_words(a.seed, a.step0 + static_cast<uint32_t>(step),
                         static_cast<uint32_t>(plant), block, n_blocks, skip,
                         w);
     }
@@ -373,7 +379,9 @@ __device__ __forceinline__ void sensor_role(
     // base pipeline (converged), then the kind's overlay
     const S prev_ts = s.base_carry.last_timestamp;
     const bool had_prev = s.base_carry.has_history;
-    const S out = base_read(s.base_params, s.base_carry, truth, time, n, u);
+    int fault;
+    const S out =
+        base_read(s.base_params, s.base_carry, truth, time, n, u, fault);
     S value;
     if (kind == kKindPh) {
       PhCarry<S> o = fields_of<PhCarry<S>>(s.overlay_carry);
@@ -402,8 +410,11 @@ __device__ __forceinline__ void sensor_role(
     }
 
     if ((step + 1) % a.record_every == 0) {
-      a.readings[(static_cast<int64_t>((step + 1) / a.record_every - 1) *
-                      kSensors + k) * batch + plant] = value;
+      const int64_t at =
+          (static_cast<int64_t>((step + 1) / a.record_every - 1) * kSensors +
+           k) * batch + plant;
+      a.readings[at] = value;
+      if (a.faults != nullptr) a.faults[at] = fault;
     }
   }
 
@@ -445,10 +456,11 @@ int launch(const void* params, const void* forcing, int scheduled,
            const double* rkc_host, int stages, const void* sensor_params,
            const void* carry_float_in, const int* carry_int_in,
            const int* delay_steps, const int* words,
-           unsigned long long seed, const void* time_in, const void* ph0,
-           const void* cl0, const void* t0, void* ph, void* cl, void* t,
-           void* time_out, void* carry_float_out, int* carry_int_out,
-           void* const* hist, void* readings, const int* statics, int batch,
+           unsigned long long seed, unsigned step0, const void* time_in,
+           const void* ph0, const void* cl0, const void* t0, void* ph,
+           void* cl, void* t, void* time_out, void* carry_float_out,
+           int* carry_int_out, void* const* hist, void* readings,
+           int* faults, const int* statics, int batch,
            int n_zones, int plants_per_block, int physics_threads,
            int sensor_stride, int n_steps, int substeps, int record_every,
            double h_step, double dt, cudaStream_t stream) {
@@ -485,6 +497,7 @@ int launch(const void* params, const void* forcing, int scheduled,
     a.hist[k] = static_cast<S*>(hist[k]);
   }
   a.readings = static_cast<S*>(readings);
+  a.faults = faults;
   a.rkc = rkc_from_host<S>(rkc_host, stages);
   // statics: the fields of PlantStatics in order, 7 ints each and then
   // d_max (4), as ops/fused_plant.py::_statics_array lays them out
@@ -504,6 +517,7 @@ int launch(const void* params, const void* forcing, int scheduled,
     }
   }
   a.seed = seed;
+  a.step0 = step0;
   a.scheduled = scheduled;
   a.stages = stages;
   a.batch = batch;
@@ -551,8 +565,10 @@ extern "C" {
 // B3. Returns the cudaError_t of the launch (0 on success). ``hist`` is a
 // host array of the four history pointers and ``statics`` a host array of
 // kStaticsInts (74) ints; ``words`` is null for the Philox stream under
-// ``seed``. A block holds ``plants_per_block`` plants on ``physics_threads``
-// (a multiple of 32, at least plants_per_block * n_zones) physics threads
+// ``seed``, whose step counter starts at ``step0``. ``faults`` is null, or
+// receives each recorded reading's fault code beside ``readings``. A block
+// holds ``plants_per_block`` plants on ``physics_threads`` (a multiple of
+// 32, at least plants_per_block * n_zones) physics threads
 // and 7 * sensor_stride sensor lanes rounded up to a multiple of 32, sensor
 // k's from lane k * sensor_stride (>= plants_per_block) on
 // (ops/fused_plant.py::plant_geometry).
@@ -561,11 +577,11 @@ int wt_plant_rollout(int is_double, const void* params, const void* forcing,
                      const void* sensor_params, const void* carry_float_in,
                      const int* carry_int_in, const int* delay_steps,
                      const int* words, unsigned long long seed,
-                     const void* time_in, const void* ph0, const void* cl0,
-                     const void* t0, void* ph, void* cl, void* t,
-                     void* time_out, void* carry_float_out,
+                     unsigned step0, const void* time_in, const void* ph0,
+                     const void* cl0, const void* t0, void* ph, void* cl,
+                     void* t, void* time_out, void* carry_float_out,
                      int* carry_int_out, void* const* hist, void* readings,
-                     const int* statics, int batch, int n_zones,
+                     int* faults, const int* statics, int batch, int n_zones,
                      int plants_per_block, int physics_threads,
                      int sensor_stride, int n_steps, int substeps,
                      int record_every, double h_step, double dt,
@@ -574,17 +590,18 @@ int wt_plant_rollout(int is_double, const void* params, const void* forcing,
   if (is_double) {
     return wt::launch<double>(
         params, forcing, scheduled, rkc, stages, sensor_params,
-        carry_float_in, carry_int_in, delay_steps, words, seed, time_in, ph0,
-        cl0, t0, ph, cl, t, time_out, carry_float_out, carry_int_out, hist,
-        readings, statics, batch, n_zones, plants_per_block, physics_threads,
-        sensor_stride, n_steps, substeps, record_every, h_step, dt, s);
+        carry_float_in, carry_int_in, delay_steps, words, seed, step0,
+        time_in, ph0, cl0, t0, ph, cl, t, time_out, carry_float_out,
+        carry_int_out, hist, readings, faults, statics, batch, n_zones,
+        plants_per_block, physics_threads, sensor_stride, n_steps, substeps,
+        record_every, h_step, dt, s);
   }
   return wt::launch<float>(
       params, forcing, scheduled, rkc, stages, sensor_params, carry_float_in,
-      carry_int_in, delay_steps, words, seed, time_in, ph0, cl0, t0, ph, cl,
-      t, time_out, carry_float_out, carry_int_out, hist, readings, statics,
-      batch, n_zones, plants_per_block, physics_threads, sensor_stride,
-      n_steps, substeps, record_every, h_step, dt, s);
+      carry_int_in, delay_steps, words, seed, step0, time_in, ph0, cl0, t0,
+      ph, cl, t, time_out, carry_float_out, carry_int_out, hist, readings,
+      faults, statics, batch, n_zones, plants_per_block, physics_threads,
+      sensor_stride, n_steps, substeps, record_every, h_step, dt, s);
 }
 
 // The Philox words of ``n_steps`` steps of ``batch`` plants into

@@ -209,11 +209,14 @@ __device__ __forceinline__ void rand_from_words(const uint32_t* words,
 // sensors/base.py::base_read with the sample line resolved outside:
 // ``true_value`` is already delayed. Updates the carry and returns the
 // reading's value (NaN on the power-fault and warm-up paths, on a bubble
-// and on an open or short circuit). n: 5 normals, u: 3 uniforms.
+// and on an open or short circuit); ``out_fault`` receives the reading's
+// fault code, which the carry keeps only on the normal path. n: 5 normals,
+// u: 3 uniforms.
 template <typename S>
 __device__ __forceinline__ S base_read(const BaseParams<S>& p,
                                        BaseCarry<S>& c, S true_value, S t,
-                                       const S* n, const S* u) {
+                                       const S* n, const S* u,
+                                       int& out_fault) {
   const S nan = quiet_nan<S>();
   const S n_volt = n[0], n_noise = n[1], n_stag = n[2], n_gnd = n[3],
           n_vib = n[4];
@@ -309,8 +312,7 @@ __device__ __forceinline__ S base_read(const BaseParams<S>& p,
   // merge the three paths
   const bool early = power_bad || warming;
   const S out_value = early ? nan : value_norm;
-  const int out_fault =
-      power_bad ? power_fault_code : (warming ? kFaultNone : fault);
+  out_fault = power_bad ? power_fault_code : (warming ? kFaultNone : fault);
 
   if (normal_path) {
     c.current_value = value_norm;

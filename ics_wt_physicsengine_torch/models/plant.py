@@ -15,6 +15,11 @@ takes an integer ``seed``.
 
 A plant with an extension axis runs the ``plant_step`` loop: the fused
 plant kernel refuses the axes (``ops.fused_plant.unsupported_reason``).
+
+``plant_serve_chunk`` is the serving loop's chunk (``python -m
+ics_wt_physicsengine_torch --fused-sensors --serve-chunk N``): one launch of
+the fused plant kernel on the card, its plain version on the CPU, returning
+only what the serving loop reads.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from ics_wt_physicsengine_torch.sensors import ph as SP
 from ics_wt_physicsengine_torch.sensors import temperature as ST
 from ics_wt_physicsengine_torch.sensors import turbidity as STB
 from ics_wt_physicsengine_torch.sensors.types import (InstallationQuality,
-                                                      SampleLine)
+                                                      SampleLine, SensorFault,
+                                                      SensorStatus)
 from ics_wt_physicsengine_torch.utils.dispatch import checkpointed, map_tensors
 
 
@@ -371,6 +377,174 @@ def plant_rollout_serve(params: PlantParams, plant: PlantState,
     return plant, per_step
 
 
+@dataclass
+class ServeChunk:
+    """What a serving chunk gives the serving loop (``plant_serve_chunk``):
+    the final plant; the record's sensor columns (``names``), their measured
+    values and fault codes at every ``record_every``-th step, ``[n_steps //
+    record_every, len(names)(, B)]``; and the last step's ``(value, status,
+    fault)`` of every instrument (``last``), status and fault int32
+    codes."""
+
+    plant: PlantState
+    names: Tuple[str, ...]
+    values: torch.Tensor
+    faults: torch.Tensor
+    last: Dict[str, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+_POWER_FAULTS = (SB._F[SensorFault.POWER_LOW], SB._F[SensorFault.POWER_HIGH])
+
+
+def _last_codes(params, plant: PlantState, fault, attr: str):
+    """The last reading's status of instrument ``attr``, from its returned
+    carry and the reading's fault code, by the gates of
+    ``sensors.base.base_read``: a power fault on either path reads
+    POWER_FAULT; otherwise a sensor still warming up reads WARMING_UP (its
+    carry keeps the status from before); otherwise the carry holds the
+    reading's status."""
+    carry = getattr(plant, attr).base
+    warmup = getattr(params, attr).base.warmup_time_s
+    t = plant.reactor.time.to(carry.power_on_time.dtype)
+    warming = (t - carry.power_on_time) < warmup
+    power = (fault == _POWER_FAULTS[0]) | (fault == _POWER_FAULTS[1])
+    status = torch.where(
+        power, SB._S[SensorStatus.POWER_FAULT],
+        torch.where(warming, SB._S[SensorStatus.WARMING_UP], carry.status))
+    return status.to(torch.int32)
+
+
+def _join_rings(old: SB.SensorCarry, new: SB.SensorCarry, window: int
+                ) -> SB.SensorCarry:
+    """The sample-line ring after a fused chunk, joined with the ring before
+    it: ``new`` holds the chunk's last ``k`` samples from slot 0 (the fused
+    kernel's ring rebuild keeps no more than the chunk's own); where ``k``
+    is short of ``window`` (the line's history, at most the ring), the
+    newest samples of ``old`` go in front of them, oldest first from slot 0,
+    so that the ring holds the last ``min(count + k, window)`` samples, as
+    one chunk of the two chunks' length would leave it."""
+    C = int(new.line_values.shape[-1])
+    k = new.line_count.to(torch.int64)
+    count = old.line_count.to(torch.int64)
+    keep = torch.clamp(count + k, max=window)
+    n_old = keep - k                                   # old samples kept
+    j = torch.arange(C, device=k.device)
+    lead = j < n_old[..., None]
+    old_slot = torch.remainder(old.line_ptr.to(torch.int64)[..., None]
+                               - n_old[..., None] + j, C)
+    new_slot = torch.clamp(j - n_old[..., None], 0, C - 1)
+
+    def join(o, x, empty):
+        v = torch.where(lead, torch.gather(o, -1, old_slot),
+                        torch.gather(x, -1, new_slot))
+        return torch.where(j < keep[..., None], v, empty)
+
+    return replace(
+        new,
+        line_values=join(old.line_values, new.line_values, 0.0),
+        line_times=join(old.line_times, new.line_times, -math.inf),
+        line_count=keep.to(new.line_count.dtype),
+        line_ptr=torch.remainder(keep, C).to(new.line_ptr.dtype))
+
+
+def plant_serve_chunk(params: PlantParams, plant: PlantState,
+                      schedule: R.BoundaryConditions, *, dt: float,
+                      substeps: int, stages=None, record_every: int = 1,
+                      seed: int = 0, step0: int = 0, rng: str = "philox",
+                      bits=None) -> ServeChunk:
+    """One serving chunk: advance the plant under a per-step boundary
+    schedule (``[n_steps]`` fields) and return what the serving loop reads
+    (``ServeChunk``): the last step's readings for the register snapshot,
+    values and fault codes at every ``record_every``-th step for the
+    history (the record starts with step ``record_every - 1``; a chunk
+    shorter than ``record_every`` records nothing), and the final plant.
+
+    Routing, decided before any launch from what the plant shows: a plant
+    on the CUDA card that the fused plant kernel supports
+    (``ops.fused_plant.unsupported_reason`` is None) runs in one launch of
+    that kernel, a CPU one in its plain version; a plant with an extension
+    axis takes the ``plant_step`` loop on its own device. A failed launch
+    raises; nothing reroutes.
+
+    Randomness: the kernel's Philox stream of ``seed`` from global step
+    ``step0`` (pass the serving loop's step count and the same seed every
+    chunk: a run's noise then does not depend on how it is chunked), or the
+    injected ``bits`` ``[n_steps, 76, B]`` with ``rng="bits"``. The
+    ``plant_step`` loop draws from a ``torch.Generator`` seeded with
+    ``seed`` and ``step0`` (different noise every chunk, not
+    chunk-invariant).
+
+    Sample lines: the chunk consumes the incoming rings and hands on rings
+    joined with them (``_join_rings``), so that chunks shorter than a
+    line's delay chain as one longer chunk would; a chunk from a plant
+    whose rings the ``plant_step`` loop filled keeps the fused kernel's
+    documented differences (``ops/fused_plant.py``).
+
+    The kernel records every ``gcd(n_steps, record_every)``-th step, so
+    that its last row is the last step; the record returned is every
+    ``record_every``-th of those. The last step's value is the carried last
+    value, its fault code the kernel's, its status the carry's as
+    ``_last_codes`` resolves it."""
+    from ics_wt_physicsengine_torch.ops import fused_plant as FP
+
+    if record_every < 1:
+        raise ValueError(f"record_every must be >= 1, got {record_every}")
+    if rng not in ("philox", "bits") or (rng == "bits") != (bits is not None):
+        raise ValueError("rng must be 'philox', or 'bits' with bits=")
+    n_steps = R.schedule_length(schedule)
+    if FP.unsupported_reason(params) is None:
+        every = math.gcd(n_steps, record_every)
+        new_plant, values, faults = FP._rollout_with(
+            FP.table_runner(params, plant), params, plant, schedule, dt=dt,
+            substeps=substeps, n_steps=n_steps, stages=stages,
+            record_every=every, bits=bits, seed=seed,
+            consume_line=True, step0=step0, record_faults=True)
+        for attr, _, _, _, d_max in FP.sensor_statics(params, dt):
+            old = getattr(plant, attr).base
+            if d_max > 0 and old.line_values is not None \
+                    and n_steps < min(d_max + 1, old.line_values.shape[-1]):
+                sensor = getattr(new_plant, attr)
+                setattr(new_plant, attr, replace(sensor, base=_join_rings(
+                    old, sensor.base, d_max + 1)))
+        names = tuple(values)
+        values = torch.stack([values[n] for n in names], dim=1)
+        faults = torch.stack([faults[n] for n in names], dim=1)
+        last = {}
+        for k, (name, attr, _) in enumerate(FP.SENSORS):
+            fault = faults[-1, k]
+            last[name] = (getattr(new_plant, attr).base.last_value,
+                          _last_codes(params, new_plant, fault, attr), fault)
+        k = record_every // every
+        return ServeChunk(new_plant, names, values[k - 1::k],
+                          faults[k - 1::k], last)
+
+    if bits is not None:
+        raise ValueError("injected words need the fused plant kernel's "
+                         "configuration (no extension axis)")
+    device = plant.reactor.pH.device
+    generator = torch.Generator(device=device).manual_seed(
+        (int(seed) * 1000003 + int(step0)) & 0x7FFFFFFFFFFFFFFF)
+    columns, _ = _normalize_schedule(schedule, device)
+    rows, fault_rows = [], []
+    for i in range(n_steps):
+        plant, readings = plant_step(params, plant, _row(columns, i), dt,
+                                     substeps, stages=stages,
+                                     generator=generator)
+        if (i + 1) % record_every == 0:
+            rows.append(torch.stack([r.value for r in readings.values()]))
+            fault_rows.append(torch.stack([r.fault for r in
+                                           readings.values()]))
+    names = tuple(readings)
+    shape = (0, len(names)) + tuple(plant.reactor.time.shape)
+    values = torch.stack(rows) if rows else torch.empty(
+        shape, dtype=plant.reactor.pH.dtype, device=device)
+    faults = torch.stack(fault_rows) if fault_rows else torch.empty(
+        shape, dtype=torch.int32, device=device)
+    last = {name: (r.value, r.status, r.fault)
+            for name, r in readings.items()}
+    return ServeChunk(plant, names, values, faults, last)
+
+
 def make_plant_batch(config: R.ReactorConfiguration, n_plants: int,
                      seed: int = 0, dtype=DEFAULT_DTYPE,
                      randomize: bool = True, warmed_up: bool = True,
@@ -567,3 +741,9 @@ def config4_monte_carlo(n_plants: int = 4096, seed: int = 0,
     return make_monte_carlo_batch(R.ReactorConfiguration(n_zones=20),
                                   n_plants, seed=seed, dtype=dtype,
                                   device=device)
+
+
+def config5_hil_cli_args(port: int = 5020) -> list:
+    """Config 5: closed-loop HIL: argv for the serving command line
+    (``python -m ics_wt_physicsengine_torch``)."""
+    return ["--port", str(port), "--dt", "1.0"]

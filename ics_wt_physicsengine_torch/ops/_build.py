@@ -132,8 +132,9 @@ def bind(name: str, path: Path):
     elif name == "fused_plant":
         lib.wt_plant_rollout.argtypes = (
             [i32, ptr, ptr, i32, ptr, i32]      # type, tables, rkc, stages
-            + [ptr] * 5 + [u64]                 # sensor tables, words, seed
-            + [ptr] * 13                        # time, state, outputs
+            + [ptr] * 5 + [u64, ctypes.c_uint]  # sensor tables, words, seed,
+                                                # step0
+            + [ptr] * 14                        # time, state, outputs
             + [i32] * 8 + [f64, f64, ptr])      # sizes, h_step, dt, stream
         lib.wt_plant_rollout.restype = i32
         lib.wt_philox_words.argtypes = [u64, i32, i32, ptr, ptr]

@@ -39,11 +39,19 @@ incoming and an in-rollout sample resolve by ring slot; a rollout shorter
 than a line's delay loses earlier history beyond the rebuilt window.
 
 Randomness: ``rng="philox"`` (production) is Philox4x32-10 keyed by the
-64-bit ``seed`` with counter (step, plant, word block 0..18, 0); the stream
-depends on the step and the plant only, and ``philox_words`` reproduces it
-in integer tensor arithmetic. ``rng="bits"`` consumes caller-supplied int32
+64-bit ``seed`` with counter (step0 + step, plant, word block 0..18, 0),
+the step counter taken modulo 2^32; the stream depends on the global step
+and the plant only, and ``philox_words`` reproduces it in integer tensor
+arithmetic. A serving loop that launches once per chunk passes its step
+count as ``step0`` (default 0), so that a run's noise does not depend on
+how it is chunked. ``rng="bits"`` consumes caller-supplied int32
 words ``[n_steps, N_WORDS, B]``, one stream per plant. Uniforms take a
 word's top 24 bits, normals are Box-Muller pairs (``rand_from_words``).
+
+Fault record: with ``record_faults`` the kernel and its plain version also
+write each recorded reading's fault code, int32 ``[n_steps //
+record_every, 7, B]`` beside the values (the serving chunk's history needs
+them; ``models.plant.plant_serve_chunk``).
 
 Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (the same algorithm as a Python loop over steps on
@@ -205,10 +213,10 @@ def plant_ops(batch: int, n_zones: int, n_steps: int, substeps: int,
 
 def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
                 hist_slots: int, scheduled: bool, bits: bool,
-                itemsize: int = 4) -> int:
+                itemsize: int = 4, faults: bool = False) -> int:
     """Bytes a launch must move: every input read once, every output
     written once. ``hist_slots`` is the sum of the four histories' slot
-    counts."""
+    counts; ``faults``: the fault-code record is written too."""
     state = 3 * batch * n_zones * itemsize
     tables = (len(F.PARAM_COLS) + N_PCOLS) * batch * itemsize \
         + 4 * batch * 4
@@ -216,7 +224,8 @@ def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
         * itemsize
     carries = batch * (N_FLOAT_CCOLS * itemsize + N_INT_CCOLS * 4)
     hist = hist_slots * batch * itemsize
-    readings = (n_steps // record_every) * len(SENSORS) * batch * itemsize
+    readings = (n_steps // record_every) * len(SENSORS) * batch \
+        * (itemsize + (4 if faults else 0))
     words = n_steps * N_WORDS * batch * 4 if bits else 0
     return 2 * state + tables + forcing + 2 * carries + 2 * hist \
         + readings + words
@@ -364,11 +373,12 @@ def philox_words(seed: int, step0: int, n_steps: int, batch: int,
                  device) -> torch.Tensor:
     """The kernel's word stream for steps ``step0 .. step0 + n_steps - 1``
     of ``batch`` plants, as int32 ``[n_steps, N_WORDS, batch]``: nineteen
-    Philox blocks per plant and step with counter (step, plant, block, 0)
-    under the key ``seed``."""
+    Philox blocks per plant and step with counter (step mod 2^32, plant,
+    block, 0) under the key ``seed``."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     i64 = dict(dtype=torch.int64, device=device)
-    step = torch.arange(step0, step0 + n_steps, **i64)[:, None, None]
+    step = (torch.arange(step0, step0 + n_steps, **i64)
+            & _MASK32)[:, None, None]
     block = torch.arange(N_WORDS // 4, **i64)[None, :, None]
     plant = torch.arange(batch, **i64)[None, None, :]
     shape = (n_steps, N_WORDS // 4, batch)
@@ -567,6 +577,7 @@ class PlantResult:
     carry_int: torch.Tensor     # [N_INT_CCOLS, B]
     hist: List[torch.Tensor]    # 4 x [d_max + 1, B]
     readings: torch.Tensor      # [n_steps // record_every, 7, B]
+    faults: Optional[torch.Tensor] = None   # int32, as readings
 
 
 def _leaf(obj, sub, field):
@@ -720,10 +731,11 @@ def _pack_carries(carries, like_float, like_int):
 
 def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
                 n_steps: int, stages: Optional[int] = None,
-                record_every: int = 1, bits=None,
-                seed: int = 0) -> PlantResult:
+                record_every: int = 1, bits=None, seed: int = 0,
+                step0: int = 0, record_faults: bool = False) -> PlantResult:
     """Plain PyTorch version of kernel B3 on tables: a Python loop over
-    steps. ``bits`` None draws the Philox stream of ``seed``."""
+    steps. ``bits`` None draws the Philox stream of ``seed`` from step
+    ``step0``; ``record_faults`` records the fault codes too."""
     ph, cl, t = tables.ph, tables.cl, tables.t
     batch, n_zones = ph.shape
     dtype, device = ph.dtype, ph.device
@@ -770,7 +782,7 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
     time = tables.time.clone()
     chunk = max(1, (1 << 16) // batch)   # steps of Philox words at a time
     words_chunk, chunk0 = None, 0
-    rows = []
+    rows, fault_rows = [], []
     for g in range(n_steps):
         if tables.scheduled:
             row = tables.forcing[g]
@@ -787,11 +799,12 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
         else:
             if words_chunk is None or g >= chunk0 + words_chunk.shape[0]:
                 chunk0 = g
-                words_chunk = philox_words(seed, g, min(chunk, n_steps - g),
-                                           batch, device)
+                words_chunk = philox_words(seed, step0 + g,
+                                           min(chunk, n_steps - g), batch,
+                                           device)
             words = words_chunk[g - chunk0]
 
-        values = []
+        values, faults = [], []
         for _, attr, kind in SENSORS:
             zone = info[attr][0]
             w0 = _WORD_OFFSET[attr]
@@ -815,17 +828,23 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
                     delayed_true=delayed(attr, g, tap_t))
             carries[attr] = c
             values.append(out.value)
+            faults.append(out.fault)
         if (g + 1) % record_every == 0:
             rows.append(torch.stack(values))
+            fault_rows.append(torch.stack(faults).to(torch.int32))
 
     carry_float, carry_int = _pack_carries(carries, tables.carry_float,
                                            tables.carry_int)
     readings = torch.stack(rows) if rows else \
         ph.new_empty((0, len(SENSORS), batch))
+    faults = None
+    if record_faults:
+        faults = torch.stack(fault_rows) if fault_rows else torch.empty(
+            (0, len(SENSORS), batch), dtype=torch.int32, device=device)
     return PlantResult(ph=ph, cl=cl, t=t, time=time,
                        carry_float=carry_float, carry_int=carry_int,
                        hist=[hist[a] for a in _LINE_ATTRS],
-                       readings=readings)
+                       readings=readings, faults=faults)
 
 
 # ---------------------------------------------------------------------------
@@ -874,8 +893,8 @@ def _statics_array(statics):
 
 def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
                  n_steps: int, stages: Optional[int] = None,
-                 record_every: int = 1, bits=None,
-                 seed: int = 0) -> PlantResult:
+                 record_every: int = 1, bits=None, seed: int = 0,
+                 step0: int = 0, record_faults: bool = False) -> PlantResult:
     """Kernel B3 on CUDA tables (same contract as ``plant_plain``)."""
     from ics_wt_physicsengine_torch.ops import _build
 
@@ -922,14 +941,17 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
     geometry = plant_geometry(n_zones, batch)
 
     lib = _build.load("fused_plant")
+    n_rec = n_steps // record_every
     out = PlantResult(
         ph=torch.empty_like(ph), cl=torch.empty_like(ph),
         t=torch.empty_like(ph), time=torch.empty_like(tables.time),
         carry_float=torch.empty_like(tables.carry_float),
         carry_int=torch.empty_like(tables.carry_int),
         hist=[x.clone() for x in tables.lead],
-        readings=torch.empty((n_steps // record_every, len(SENSORS), batch),
-                             dtype=dtype, device=device))
+        readings=torch.empty((n_rec, len(SENSORS), batch), dtype=dtype,
+                             device=device),
+        faults=torch.empty((n_rec, len(SENSORS), batch), dtype=torch.int32,
+                           device=device) if record_faults else None)
     h_step = dt / substeps
     rkc = F._rkc_host_table(stages, h_step) if stages is not None else None
     hist_ptrs = (ctypes.c_void_p * len(out.hist))(
@@ -942,12 +964,14 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
         tables.carry_float.data_ptr(), tables.carry_int.data_ptr(),
         tables.delay_steps.data_ptr(),
         words.data_ptr() if words is not None else None,
-        int(seed) & 0xFFFFFFFFFFFFFFFF, tables.time.data_ptr(),
+        int(seed) & 0xFFFFFFFFFFFFFFFF, int(step0) & _MASK32,
+        tables.time.data_ptr(),
         tables.ph.data_ptr(), tables.cl.data_ptr(), tables.t.data_ptr(),
         out.ph.data_ptr(), out.cl.data_ptr(), out.t.data_ptr(),
         out.time.data_ptr(), out.carry_float.data_ptr(),
         out.carry_int.data_ptr(), ctypes.cast(hist_ptrs, ctypes.c_void_p),
         out.readings.data_ptr(),
+        out.faults.data_ptr() if out.faults is not None else None,
         ctypes.cast(_statics_array(tables.statics), ctypes.c_void_p),
         batch, n_zones, geometry.plants_per_block, geometry.physics_threads,
         geometry.sensor_stride, n_steps, substeps, record_every, h_step, dt,
@@ -983,7 +1007,7 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
                         substeps: int, n_steps: int,
                         stages: Optional[int] = None, record_every: int = 1,
                         rng: str = "philox", bits=None, seed: int = 0,
-                        consume_line: bool = True):
+                        consume_line: bool = True, step0: int = 0):
     """Advance the full instrumented plant ``n_steps`` in one launch of
     kernel B3 (its plain version for a CPU plant).
 
@@ -994,9 +1018,9 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
     BoundaryConditions with ``[n_steps]`` fields (scalars hold for every
     step), one row per step for every plant.
 
-    ``rng="philox"`` draws the Philox stream of ``seed``; ``rng="bits"``
-    consumes caller-supplied int32 ``bits`` of shape
-    ``[n_steps, N_WORDS, B]`` (see the module docstring).
+    ``rng="philox"`` draws the Philox stream of ``seed`` from step
+    ``step0``; ``rng="bits"`` consumes caller-supplied int32 ``bits`` of
+    shape ``[n_steps, N_WORDS, B]`` (see the module docstring).
 
     Sample lines: delays may differ per plant, sensors may tap any zone
     (``zone_index``, uniform over the batch), and the incoming carry rings
@@ -1017,26 +1041,34 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
     if record_every < 1 or n_steps % record_every:
         raise ValueError(f"n_steps={n_steps} must be a multiple of "
                          f"record_every={record_every}")
+    return _rollout_with(table_runner(params, plant), params, plant,
+                         boundary, dt=dt, substeps=substeps, n_steps=n_steps,
+                         stages=stages, record_every=record_every, bits=bits,
+                         seed=seed, consume_line=consume_line, step0=step0)
+
+
+def table_runner(params, plant):
+    """The table-level function a plant's device selects: ``plant_kernel``
+    for a CUDA plant, ``plant_plain`` for a CPU plant. Raises for a
+    configuration the kernel does not support."""
     reason = unsupported_reason(params)
     if reason is not None:
         raise ValueError(reason)
-
     device = plant.reactor.pH.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    run = plant_kernel if device.type == "cuda" else plant_plain
-    return _rollout_with(run, params, plant, boundary, dt=dt,
-                         substeps=substeps, n_steps=n_steps, stages=stages,
-                         record_every=record_every, bits=bits, seed=seed,
-                         consume_line=consume_line)
+    return plant_kernel if device.type == "cuda" else plant_plain
 
 
 def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
-                  stages, record_every, bits, seed, consume_line):
+                  stages, record_every, bits, seed, consume_line,
+                  step0: int = 0, record_faults: bool = False):
     """``plant_rollout_fused`` with the table-level function ``run``
     (``plant_kernel`` or ``plant_plain``) given: pack the tables, run,
     rebuild the ``PlantState`` and the readings. The kernel checks call it
-    with ``plant_plain`` on CUDA tensors for the reference on the card."""
+    with ``plant_plain`` on CUDA tensors for the reference on the card.
+    With ``record_faults`` it returns ``(plant, readings, faults)``, the
+    fault codes as the readings."""
     state = plant.reactor
     single = state.pH.ndim == 1
     batch = 1 if single else state.pH.shape[0]
@@ -1044,7 +1076,8 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
     tables = build_tables(params, plant, boundary, dt=dt, n_steps=n_steps,
                           consume_line=consume_line)
     out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
-              stages=stages, record_every=record_every, bits=bits, seed=seed)
+              stages=stages, record_every=record_every, bits=bits, seed=seed,
+              step0=step0, record_faults=record_faults)
 
     def unprep(x):
         return x[0] if single else x
@@ -1089,7 +1122,11 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
             old, base=replace(old.base, **base_updates), **overlay_updates)
 
     new_plant = PlantState(reactor=new_reactor, **sensors_new)
-    readings = {rname: out.readings[:, k, 0] if single
-                else out.readings[:, k]
+
+    def per_sensor(rec):
+        return {rname: rec[:, k, 0] if single else rec[:, k]
                 for k, (rname, _, _) in enumerate(SENSORS)}
-    return new_plant, readings
+
+    if record_faults:
+        return new_plant, per_sensor(out.readings), per_sensor(out.faults)
+    return new_plant, per_sensor(out.readings)

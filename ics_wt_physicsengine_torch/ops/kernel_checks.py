@@ -33,6 +33,7 @@ same places.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -205,6 +206,15 @@ B3_CASES = {
     "batch64-z128-fast-sched-philox": dict(
         n_zones=128, n_plants=64, integrator="fast", scheduled=True,
         rng="philox", record_every=1),
+    # the serving chunk's launch: the Philox counter from a global step
+    # past 2^32 (it wraps) and the fault-code record; and the fault record
+    # on the forced fault paths of ``plant_words``
+    "single-z20-rk4-sched-philox-step0-faults-rec10": dict(
+        n_zones=20, n_plants=1, integrator="rk4", scheduled=True,
+        rng="philox", record_every=10, step0=(1 << 32) - 25, faults=True),
+    "batch64-z5-rk4-sched-bits-faults": dict(
+        n_zones=5, n_plants=64, integrator="rk4", scheduled=True,
+        rng="bits", record_every=1, faults=True),
 }
 B3_STEPS = 60
 
@@ -324,17 +334,18 @@ def plant_diff(got, ref) -> dict:
 
 
 def _fused(run, params, plant, boundary, *, substeps, stages, n_steps,
-           record_every=1, bits=None, seed=0):
+           record_every=1, bits=None, seed=0, step0=0, record_faults=False):
     return FP._rollout_with(run, params, plant, boundary, dt=DT,
                             substeps=substeps, n_steps=n_steps,
                             stages=stages, record_every=record_every,
-                            bits=bits, seed=seed, consume_line=True)
+                            bits=bits, seed=seed, consume_line=True,
+                            step0=step0, record_faults=record_faults)
 
 
 def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
     """Kernel B3 and its plain version on one ``B3_CASES`` entry, both on
-    the card; returns the kernel's ``(plant, readings)`` and ``plant_diff``
-    of the two."""
+    the card; returns the kernel's ``(plant, readings)`` (and its fault
+    codes, for a case with ``faults``) and ``plant_diff`` of the two."""
     dtype = case.get("dtype", torch.float32)
     params, plant = plant_case(case["n_zones"], case["n_plants"], dtype,
                                device, delays=case.get("delays", False),
@@ -344,11 +355,70 @@ def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
     bits = plant_words(n_steps, case["n_plants"], device) \
         if case["rng"] == "bits" else None
     kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
-              record_every=case["record_every"], bits=bits, seed=11)
+              record_every=case["record_every"], bits=bits, seed=11,
+              step0=case.get("step0", 0),
+              record_faults=case.get("faults", False))
     got = _fused(FP.plant_kernel, params, plant, boundary, **kw)
     torch.cuda.synchronize()
     ref = _fused(FP.plant_plain, params, plant, boundary, **kw)
     return got, plant_diff(got, ref)
+
+
+def serve_chunk_vs_plain(device, n_steps: int = 120, record_every: int = 7,
+                         step0: int = (1 << 32) - 50):
+    """``models.plant.plant_serve_chunk`` on the card (one B3 launch, the
+    Philox counter from ``step0``, the fault record) against the same chunk
+    through B3's plain version on the card. Returns the chunk, ``plant_diff``
+    of (plant, values, fault codes) and the launches it made."""
+    params, plant = plant_case(20, 1, torch.float32, device)
+    substeps, _ = plant_plan(20, "rk4")
+    sched = bench_schedule(n_steps)
+    FP.reset_launch_counts()
+    got = P.plant_serve_chunk(params, plant, sched, dt=DT, substeps=substeps,
+                              record_every=record_every, seed=11,
+                              step0=step0)
+    launches = FP.LAUNCHES["plant_rollout_fused"]
+    every = math.gcd(n_steps, record_every)
+    ref, values, faults = _fused(
+        FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
+        n_steps=n_steps, record_every=every, seed=11, step0=step0,
+        record_faults=True)
+    k = record_every // every
+    ref_values = torch.stack(list(values.values()), dim=1)[k - 1::k]
+    ref_faults = torch.stack(list(faults.values()), dim=1)[k - 1::k]
+    torch.cuda.synchronize()
+    return got, plant_diff((got.plant, got.values, got.faults),
+                           (ref, ref_values, ref_faults)), launches
+
+
+def serve_chunks_invariant(device, sizes=(16, 16), record_every: int = 4):
+    """Whether ``plant_serve_chunk`` in chunks of ``sizes`` (each passing
+    its global step as ``step0``) gives the plant, the record and the last
+    readings of one chunk of their sum, bit for bit, on ``device``."""
+    params, plant = plant_case(20, 1, torch.float32, device)
+    substeps, _ = plant_plan(20, "rk4")
+    n = sum(sizes)
+    full = bench_schedule(n)
+
+    def part(a, b):
+        return R.BoundaryConditions(**{
+            f.name: (getattr(full, f.name)[a:b]
+                     if np.ndim(getattr(full, f.name)) else
+                     getattr(full, f.name))
+            for f in dataclasses.fields(full)})
+
+    kw = dict(dt=DT, substeps=substeps, record_every=record_every, seed=11)
+    whole = P.plant_serve_chunk(params, plant, full, step0=0, **kw)
+    p, values, faults, start = plant, [], [], 0
+    for size in sizes:
+        c = P.plant_serve_chunk(params, p, part(start, start + size),
+                                step0=start, **kw)
+        p, start = c.plant, start + size
+        values.append(c.values)
+        faults.append(c.faults)
+    d = plant_diff((p, torch.cat(values), torch.cat(faults), c.last),
+                   (whole.plant, whole.values, whole.faults, whole.last))
+    return d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"]
 
 
 def b3_constant_schedule_equals_constant(n_zones, n_plants, device, *,

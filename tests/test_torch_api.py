@@ -476,8 +476,6 @@ WAITS = {
     "models": {
         "ROADMAP queue A item 5c (batched plant rollouts)": {
             "plant_rollout_batched"},
-        "ROADMAP queue A item 11 (serving: the HIL command line)": {
-            "config5_hil_cli_args"},
     },
     "utils": {
         "one array library in the port: no namespace dispatch": {
@@ -503,10 +501,15 @@ PORTED = ("core", "core.thermodynamics", "core.chemistry", "core.transport",
           "control.ekf", "control.enkf", "control.mhe", "control.mpc",
           "models", "models.surrogate", "utils", "utils.checkpoint",
           "utils.history", "utils.profiling", "utils.backend_select",
-          "utils.netreap")
-PACKAGES = ("core", "sensors", "control", "models", "utils")
+          "utils.netreap", "modbus", "modbus.register_map",
+          "modbus.protocols", "modbus.security", "modbus.slave",
+          "modbus.client", "modbus.rtu", "modbus.native_slave", "opcua",
+          "opcua.encoding", "opcua.messages", "opcua.server",
+          "opcua.client", "__main__")
+PACKAGES = ("core", "sensors", "control", "models", "utils", "modbus",
+            "opcua")
 # modules whose whole public surface is one class
-SINGLE_CLASS = ("utils.history", "utils.netreap")
+SINGLE_CLASS = ("utils.history", "utils.netreap", "modbus.client")
 
 
 def _public_names(module, package: bool):

@@ -156,7 +156,8 @@ def test_b3_matches_plain(cuda, case):
     """State, every carry column, rebuilt rings and readings; NaN in the
     same places; integer carries equal."""
     spec = K.B3_CASES[case]
-    (plant, readings), diff = K.b3_vs_plain(spec, cuda)
+    got, diff = K.b3_vs_plain(spec, cuda)
+    plant, readings = got[:2]
     assert diff["nan_equal"] and diff["ints_equal"], diff
     assert diff["max_abs_err"] <= K.TOL[spec.get("dtype", torch.float32)], \
         diff
@@ -210,6 +211,27 @@ def test_plant_wrappers_launch_b3_on_cuda_tensors(cuda):
     assert traj["temp_inlet"].shape == (10,)
     assert float(new.reactor.time) == 30.0
     assert bool(torch.isfinite(new.reactor.pH).all())
+
+
+def test_serve_chunk_kernel_matches_plain_bit_equal(cuda):
+    """The serving chunk on the card: one B3 launch with the Philox
+    counter from a step past 2^32 and the fault-code record, bit-equal to
+    B3's plain version on the card (plant, values, fault codes)."""
+    chunk, diff, launches = K.serve_chunk_vs_plain(cuda)
+    assert launches == 1
+    assert diff["max_abs_err"] == 0.0 and diff["nan_equal"] \
+        and diff["ints_equal"], diff
+    assert chunk.values.shape == (120 // 7, 7)
+    assert chunk.faults.dtype == torch.int32 and chunk.faults.is_cuda
+    assert set(chunk.last) == {name for name, _, _ in FP.SENSORS}
+
+
+def test_serve_chunks_are_invariant_on_the_card(cuda):
+    """Two chunks of 16 steps give one chunk of 32 bit for bit on the
+    card, and chunks of 8, 8, 12, 12 and 12 one of 52 (past the 30-step
+    sample-line delay)."""
+    assert K.serve_chunks_invariant(cuda)
+    assert K.serve_chunks_invariant(cuda, sizes=(8, 8, 12, 12, 12))
 
 
 def test_b3_rejects_what_it_cannot_run(cuda):

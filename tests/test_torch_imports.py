@@ -43,6 +43,16 @@ def test_surrogate_and_utility_modules_are_scanned(module):
     assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "__main__.py", "modbus/__init__.py", "modbus/__main__.py",
+    "modbus/client.py", "modbus/native_slave.py", "modbus/protocols.py",
+    "modbus/register_map.py", "modbus/rtu.py", "modbus/security.py",
+    "modbus/slave.py", "opcua/__init__.py", "opcua/client.py",
+    "opcua/encoding.py", "opcua/messages.py", "opcua/server.py"])
+def test_serving_modules_are_scanned(module):
+    assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):
