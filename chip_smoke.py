@@ -147,17 +147,51 @@ Phases:
     --rtf 0: --zones 5 (the object path: IntegratedCSTR and seven sensor
     objects on the card) and --zones 20 --fused-sensors (plant_step once a
     tick); ticks/s, no B1-B4 launch;
+ 5t. SERVE-FLEET-8, the fleet as a user starts it: --fleet 8 --zones 20
+    --dt 1 --serve-chunk 1024 --rtf 0 (tools/serve_bench.py --fleet 8
+    --chunk 1024's shape) in a thread, a live Modbus client on units 1
+    and 8, for at least 10 s: simulated plant-seconds per wall second
+    (summed over the lanes); a chunk's milliseconds split into
+    fleet.serve_chunk_masked (B3's launch through plant_serve_chunk, host
+    clock, synchronized), the schedule, the host copies and the register
+    exchange of every unit (timed directly each chunk: from the end of the
+    chunk's host copies to the next chunk's schedule, which holds the
+    state read-back, the publishing of every unit, the command read-back
+    and the pause coils), beside B3 alone on the same tables (CUDA
+    events); one B3 launch a chunk and no plant_step; unit 8's acid
+    command lowering its own pH_outlet while unit 1's holds; unit 8's
+    pause coil freezing its clock while unit 1 runs on, and its resume;
+ 5u. SERVE-FLEET-254, the same at --fleet 254 (the Modbus unit-id cap),
+    units 1 and 254: the rate, the split and the launches;
+ 5v. FLEET-TICK-8, --fleet 8 without --serve-chunk, 60 ticks: ticks/s
+    (host clock between the first and last masked step), no B1-B4
+    launch;
+ 5w. NET-SERVE-3, --network examples/train3.json --fleet 3 --zones 5
+    --serve-chunk 16 --dt 30 for at least 10 s: network-steps/s, no B1-B4
+    launch, stage 1's chlorine dose reaching stage 2's inlet instrument;
+    then the same train through fleet.step_masked_network on the card,
+    dosed against undosed on equal flows: stage 3 unmoved for the five
+    steps its pipes (2 + 3) delay the dose, then moving;
+ 5x. MESH-1, parallel/ on a mesh of the one card: sharded_rollout_fused
+    at MC-4096's shape and sharded_plant_rollout_fused at PLANT-4096's,
+    each one launch and bit-equal to rollout_fused / plant_rollout_fused
+    (mesh position 0 draws ``seed``); a fleet's chunk (8 lanes, one B3
+    block, and 254 lanes, 32 blocks the last of 6, on their own clocks,
+    line delays and slewing schedules, one paused) bit-equal to B3's plain
+    version, and lanes 4..7 alone at plant0 = 4 and lanes 127..253 alone
+    at plant0 = 127 bit-equal to those lanes of the whole chunk;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b, 5c and 5r. Direct kernel calls (phases 3,
-3b and 3c, the kernel-only times) and phase 6 lie outside those windows;
-phases 5d-5q and 5s must launch none. Exits non-zero,
-with no result line, when there is no CUDA card, when the package is
-missing, or when any check fails. Times are CUDA-event times after a
+the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u and 5x. Direct kernel calls
+(phases 3, 3b and 3c, the kernel-only times, 5x's comparisons) and phase
+6 lie outside those windows; phases 5d-5q, 5s, 5v and 5w must launch
+none. Every phase from 5t prints the card's name and power limit. Exits
+non-zero, with no result line, when there is no CUDA card, when the package
+is missing, or when any check fails. Times are CUDA-event times after a
 warm-up; every number is this run's, on the card named in the output.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -2097,6 +2131,364 @@ def main() -> int:
     serve_chunks()
     serve_ticks()
 
+    # ---- 5t-5x. fleet and network serving, parallel/ -------------------
+    from ics_wt_physicsengine_torch import fleet as FLEET
+    from ics_wt_physicsengine_torch import parallel as PAR
+
+    logging.getLogger(FLEET.__name__).setLevel(logging.ERROR)
+    cfg20 = R.ReactorConfiguration(n_zones=20)
+    m20 = R.default_substeps(cfg20, DT)
+
+    def connect_unit(port, unit, deadline_s=60.0):
+        end = time.time() + deadline_s
+        while time.time() < end:
+            try:
+                return ModbusTcpClient("127.0.0.1", port, unit_id=unit,
+                                       timeout=5).connect()
+            except OSError:
+                time.sleep(0.2)
+        return None
+
+    def live(client, address, end):
+        """An input register once it holds a reading (a latched instrument
+        publishes 0 until the next maintenance)."""
+        while time.time() < end:
+            v = client.read_float32(address)
+            if v > 0.0:
+                return v
+            time.sleep(0.05)
+        return float("nan")
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2] if xs else float("nan")
+
+    def serve_fleet(n_lanes, probe):
+        name = "plant_rollout_fused"
+        tag = f"SERVE-FLEET-{n_lanes}"
+        chunk = FLEET_CHUNK
+        print(f"  {tag} on {card}")
+        mb = free_port()
+        argv = ["--fleet", str(n_lanes), "--zones", "20", "--dt", "1",
+                "--serve-chunk", str(chunk), "--rtf", "0", "--seed", "7",
+                "--port", str(mb), "--host", "127.0.0.1"]
+        out = dict(lanes=n_lanes, chunk_steps=chunk)
+        reset_kernel_counts()
+        with Calls(FLEET, "serve_chunk_masked") as chunks, \
+                Calls(P, "plant_serve_chunk") as inner, \
+                Calls(FLEET, "_host_chunks") as copies, \
+                Calls(FLEET, "_stack_boundary_schedule") as scheds, \
+                Calls(P, "plant_step") as steps:
+            t_start = time.perf_counter()
+            thread = serve(argv)
+            first = connect_unit(mb, 1)
+            last = connect_unit(mb, n_lanes)
+            check(first is not None and last is not None,
+                  f"{tag}: units 1 and {n_lanes} answer "
+                  f"({time.perf_counter() - t_start:.1f} s)")
+            try:
+                if first is not None and last is not None:
+                    end = time.time() + 120
+                    t0 = first.read_float32(100)
+                    t1 = wait_sim(first, t0 + 2 * chunk, end)
+                    check(t1 >= t0 + 2 * chunk, f"{tag}: simulation_time "
+                          f"advances ({t0:.0f} -> {t1:.0f} s)")
+                    w0, s0 = time.perf_counter(), first.read_float32(100)
+                    time.sleep(FLEET_RATE_WINDOW_S)
+                    w1, s1 = time.perf_counter(), first.read_float32(100)
+                    out["plant_s_per_wall_s"] = (s1 - s0) / (w1 - w0) \
+                        * n_lanes
+                    if probe:
+                        end = time.time() + 60
+                        ph = (live(last, 4, end), live(first, 4, end))
+                        t_cmd = first.read_float32(100)
+                        last.write_float32(0, 1.5)      # acid, unit N only
+                        wait_sim(first, t_cmd + 12 * 3600.0,
+                                 time.time() + 60)
+                        end = time.time() + 60
+                        ph1 = (live(last, 4, end), live(first, 4, end))
+                        last.write_float32(0, 0.0)
+                        out.update(ph_outlet_dosed=(ph[0], ph1[0]),
+                                   ph_outlet_undosed=(ph[1], ph1[1]))
+                        check(ph1[0] < ph[0] - 0.4
+                              and abs(ph1[1] - ph[1]) < 0.3,
+                              f"{tag}: acid 1.5 L/min on unit {n_lanes} "
+                              f"lowers its pH_outlet {ph[0]:.3f} -> "
+                              f"{ph1[0]:.3f} in 12 simulated hours; unit "
+                              f"1's holds {ph[1]:.3f} -> {ph1[1]:.3f}")
+                        last.write_coil(2, False)       # simulation_running
+                        time.sleep(0.5)
+                        frozen = last.read_float32(100)
+                        t_run = first.read_float32(100)
+                        wait_sim(first, t_run + 4 * chunk, time.time() + 60)
+                        held = last.read_float32(100)
+                        last.write_coil(2, True)
+                        resumed = wait_sim(last, frozen + chunk,
+                                           time.time() + 60)
+                        out.update(paused_clock=(frozen, held, resumed))
+                        check(held == frozen and resumed >= frozen + chunk,
+                              f"{tag}: unit {n_lanes}'s pause coil holds "
+                              f"its clock at {frozen:.0f} s while unit 1 "
+                              f"runs past {t_run + 4 * chunk:.0f} s; it "
+                              f"resumes to {resumed:.0f} s")
+                    first.close()
+                    last.close()
+                time.sleep(max(0.0, FLEET_WINDOW_S[n_lanes]
+                               - (time.perf_counter() - t_start)))
+            finally:
+                orchestrator.running = False
+                thread.join(timeout=120)
+        counts = kernel_counts()
+        main_launches[name] += counts[name]
+        n_chunks = len(chunks.ms)
+        check(not thread.is_alive(), f"{tag}: the loop stopped when asked")
+        check(n_chunks > 0 and counts == {
+            k: n_chunks * (k == name) for k in counts}
+            and len(steps.ms) == 0,
+            f"{tag}: {n_chunks} chunks, launches {counts}: B3 once a chunk, "
+            f"plant_step called {len(steps.ms)} times")
+        starts = chunks.times
+        iteration = median([b - a for a, b in zip(starts[1:-1], starts[2:])
+                            ]) * 1e3 if len(starts) > 3 else float("nan")
+        split = dict(iteration_ms=iteration,
+                     serve_chunk_masked_ms=median(chunks.ms[1:]),
+                     plant_serve_chunk_ms=median(inner.ms[1:]),
+                     schedule_ms=median(scheds.ms[1:]),
+                     host_copies_ms=median(copies.ms[1:]))
+        # the exchange, per chunk: from the end of chunk k's host copies to
+        # the start of chunk k + 1's schedule
+        split["register_exchange_ms"] = median([
+            (s - c) * 1e3 - ms for c, ms, s in zip(
+                copies.times[1:], copies.ms[1:], scheds.times[2:])])
+        # B3 alone on the fleet chunk's tables
+        params, plant = P.make_plant_batch(cfg20, n_lanes, seed=7,
+                                           device=dev)
+        units = [R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.5,
+                                      inlet_chlorine=0.0,
+                                      inlet_temperature=20.0,
+                                      acid_concentration=0.1)
+                 for _ in range(n_lanes)]
+        sched = FLEET._stack_boundary_schedule(units, units, chunk, DT, 0.0,
+                                               f32, dev)[0]
+        tables = FP.build_tables(params, plant, sched, dt=DT, n_steps=chunk)
+        kw = dict(dt=DT, substeps=m20, n_steps=chunk, seed=7, step0=chunk,
+                  record_faults=True)
+        FP.plant_kernel(tables, **kw)
+        kernel_ms, _ = timed(lambda: FP.plant_kernel(tables, **kw), reps=3)
+        bound, bound_by = plant_bound(n_lanes, chunk, m20, None, 1, tables,
+                                      faults=True)
+        out.update(split, chunks=n_chunks, b3_launches=counts[name],
+                   launches_per_chunk=counts[name] / max(n_chunks, 1),
+                   kernel_ms=kernel_ms, bound_ms=bound, bound_by=bound_by,
+                   plant_step_calls=len(steps.ms),
+                   served_wall_s=time.perf_counter() - t_start)
+        report[f"serve_fleet_{n_lanes}"] = out
+        print(f"  {tag} ({chunk}-step chunks, RK4 {m20}x4): "
+              f"{fmt(out.get('plant_s_per_wall_s'), '.4e')} plant-s per "
+              f"wall s; a chunk {iteration:.2f} ms: serve_chunk_masked "
+              f"{split['serve_chunk_masked_ms']:.2f} (plant_serve_chunk "
+              f"{split['plant_serve_chunk_ms']:.2f}), schedule "
+              f"{split['schedule_ms']:.2f}, host copies "
+              f"{split['host_copies_ms']:.2f}, register exchange "
+              f"{split['register_exchange_ms']:.2f} ms (medians of "
+              f"{n_chunks}); B3 alone {kernel_ms:.3f} ms, bound "
+              f"{bound:.5f} ms ({bound_by}); "
+              f"{out['launches_per_chunk']:.2f} launches a chunk")
+        return True
+
+    @phase("fleet serving: 8 lanes")
+    def serve_fleet_8():
+        return serve_fleet(8, probe=True)
+
+    @phase("fleet serving: 254 lanes")
+    def serve_fleet_254():
+        return serve_fleet(254, probe=False)
+
+    # FLEET-TICK-8: the fleet's per-tick loop, plain PyTorch
+    @phase("fleet serving: per-tick loop")
+    def fleet_ticks():
+        print(f"  FLEET-TICK-8 on {card}")
+        argv = ["--fleet", "8", "--zones", "20", "--dt", "1", "--rtf", "0",
+                "--seed", "7", "--duration", str(SERVE_TICKS), "--port",
+                str(free_port()), "--host", "127.0.0.1"]
+        reset_kernel_counts()
+        with Calls(FLEET, "step_masked") as ticks:
+            thread = serve(argv)
+            thread.join(timeout=300)
+        counts = kernel_counts()
+        n = len(ticks.times)
+        rate = (n - 1) / (ticks.times[-1] - ticks.times[0]) \
+            if n > 1 else float("nan")
+        report["fleet_tick_8"] = dict(ticks=n, ticks_per_s=rate,
+                                      tick_ms=median(ticks.ms),
+                                      kernel_launches=counts)
+        check(not thread.is_alive() and n == SERVE_TICKS,
+              f"FLEET-TICK-8: {n} ticks at --rtf 0, {rate:.2f} ticks/s "
+              f"(host clock; the masked step {median(ticks.ms):.1f} ms)")
+        no_kernel("FLEET-TICK-8", counts)
+        return True
+
+    # NET-SERVE-3: the connected train behind one endpoint
+    @phase("network serving")
+    def net_serve():
+        print(f"  NET-SERVE-3 on {card}")
+        topo = os.path.join(ROOT, "examples", "train3.json")
+        dt = 30.0
+        mb = free_port()
+        argv = ["--network", topo, "--fleet", "3", "--zones", "5",
+                "--serve-chunk", "16", "--dt", str(dt), "--rtf", "0",
+                "--seed", "7", "--port", str(mb), "--host", "127.0.0.1"]
+        out = {}
+        reset_kernel_counts()
+        with Calls(FLEET, "step_masked_network") as steps:
+            t_start = time.perf_counter()
+            thread = serve(argv)
+            c1, c2 = connect_unit(mb, 1), connect_unit(mb, 2)
+            check(c1 is not None and c2 is not None,
+                  "NET-SERVE-3: units 1 and 2 answer")
+            try:
+                if c1 is not None and c2 is not None:
+                    end = time.time() + 60
+                    wait_sim(c1, 16 * dt, end)
+                    w0, s0 = time.perf_counter(), c1.read_float32(100)
+                    time.sleep(NET_RATE_WINDOW_S)
+                    w1, s1 = time.perf_counter(), c1.read_float32(100)
+                    out["network_steps_per_s"] = (s1 - s0) / dt / (w1 - w0)
+                    cl0 = live(c2, 6, end)               # chlorine_inlet
+                    c1.write_float32(12, 1000.0)    # chlorine_concentration
+                    c1.write_float32(2, 1.0)        # chlorine_flow_rate
+                    t_dose = c1.read_float32(100)
+                    wait_sim(c1, t_dose + NET_DOSE_STEPS * dt,
+                             time.time() + 60)
+                    cl1 = live(c2, 6, time.time() + 30)
+                    out.update(stage2_chlorine_inlet=(cl0, cl1))
+                    check(cl1 > cl0 + 0.05, "NET-SERVE-3: stage 1's "
+                          f"chlorine dose reaches stage 2's inlet "
+                          f"instrument: {cl0:.3f} -> {cl1:.3f} mg/L in "
+                          f"{NET_DOSE_STEPS * dt / 60:.0f} simulated "
+                          "minutes")
+                    c1.close()
+                    c2.close()
+                time.sleep(max(0.0, NET_WINDOW_S
+                               - (time.perf_counter() - t_start)))
+            finally:
+                orchestrator.running = False
+                thread.join(timeout=120)
+        counts = kernel_counts()
+        check(not thread.is_alive(), "NET-SERVE-3: the loop stopped")
+        no_kernel("NET-SERVE-3", counts)
+        # the delay, on the card: dosed against undosed on equal flows
+        import json as _json
+        with open(topo) as f:
+            net = FLEET._network(_json.load(f), 3, f32, dev)
+        cfg5 = R.ReactorConfiguration(n_zones=5)
+        params, plant0 = P.make_plant_batch(cfg5, 3, seed=7, device=dev)
+        m5 = R.default_substeps(cfg5, dt)
+        mask = torch.ones(3, dtype=torch.bool, device=dev)
+        runs = []
+        for strength in (0.0, 200.0):
+            units = [R.BoundaryConditions(inlet_flow_rate=q,
+                                          chlorine_flow_rate=0.0)
+                     for q in net["ext_flow"]]
+            units[0] = dataclasses.replace(units[0], chlorine_flow_rate=1.0,
+                                           chlorine_concentration=strength)
+            bc = FLEET._stack_boundaries(units, f32, dev)
+            plant, (ring, idx), cl3 = plant0, FLEET._network_ring(
+                plant0, net), []
+            for _ in range(12):
+                gen = torch.Generator(device=dev).manual_seed(0)
+                plant, _, ring, idx = FLEET.step_masked_network(
+                    params, plant, bc, mask, ring, idx, net, dt=dt,
+                    substeps=m5, rand=FLEET.draw_rand(gen, params, 3, f32,
+                                                      dev))
+                cl3.append(plant.reactor.chlorine[2].sum())
+            runs.append(torch.stack(cl3))
+        moved = (runs[1] != runs[0]).nonzero()
+        first = int(moved[0, 0]) if len(moved) else None
+        out["stage3_first_moved_step"] = first
+        check(first is not None and first >= 5,
+              f"NET-SERVE-3: stage 3 unmoved for the first {first} steps "
+              "of the dose (its pipes delay it 2 + 3), then moving")
+        out.update(steps=len(steps.ms), step_ms=median(steps.ms),
+                   kernel_launches=counts)
+        report["net_serve_3"] = out
+        print(f"  NET-SERVE-3 (3 x 5 zones, dt {dt:.0f} s, RK4 {m5}x4, "
+              f"chunks of 16): {fmt(out.get('network_steps_per_s'), '.2f')} "
+              f"network-steps/s; a network step {median(steps.ms):.1f} ms "
+              f"(host clock, median of {len(steps.ms)})")
+        return True
+
+    # MESH-1: parallel/ on a mesh of the one card
+    @phase("parallel: mesh of one card")
+    def mesh_one():
+        print(f"  MESH-1 on {card}")
+        mesh = PAR.make_mesh(1)
+        out = {}
+        params, state = make_monte_carlo_batch(cfg20, 4096, seed=0,
+                                               dtype=f32, device=dev)
+        fn = PAR.sharded_rollout_fused(mesh, dt=DT, substeps=3,
+                                       n_steps=7200)
+        reset_kernel_counts()
+        ms, (got,) = timed(lambda: fn(params, state, policy))
+        counts = kernel_counts()
+        main_launches["rollout_fused"] += counts["rollout_fused"]
+        one_ms, ref = timed(lambda: F.rollout_fused(
+            params, state, policy, dt=DT, substeps=3, n_steps=7200))
+        d = K.plant_diff(got, ref)
+        out["mc_4096"] = dict(sharded_ms=ms, single_ms=one_ms,
+                              launches=counts, diff=d)
+        check(d["max_abs_err"] == 0.0 and counts == {
+            k: int(k == "rollout_fused") for k in counts},
+            f"MESH-1 MC-4096 (4096 x 20 x 7200, RK4 3x4): "
+            f"sharded_rollout_fused {ms:.2f} ms, one launch {counts}, "
+            f"bit-equal to rollout_fused ({one_ms:.2f} ms)")
+        pp, pl = P.make_plant_batch(cfg20, 4096, seed=0, device=dev)
+        fn = PAR.sharded_plant_rollout_fused(mesh, pp, dt=DT, substeps=m20,
+                                             n_steps=2000, record_every=100,
+                                             seed=7)
+        reset_kernel_counts()
+        ms, ((plants,), (readings,)) = timed(lambda: fn(pp, pl, policy))
+        counts = kernel_counts()
+        main_launches["plant_rollout_fused"] += counts["plant_rollout_fused"]
+        one_ms, ref = timed(lambda: FP.plant_rollout_fused(
+            pp, pl, policy, dt=DT, substeps=m20, n_steps=2000,
+            record_every=100, seed=7))
+        d = K.plant_diff((plants, readings), ref)
+        out["plant_4096"] = dict(sharded_ms=ms, single_ms=one_ms,
+                                 launches=counts, diff=d)
+        check(d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"]
+              and counts == {k: int(k == "plant_rollout_fused")
+                             for k in counts},
+              f"MESH-1 PLANT-4096 (4096 x 20 x 2000, every 100th): "
+              f"sharded_plant_rollout_fused {ms:.2f} ms, one launch, "
+              f"bit-equal to plant_rollout_fused ({one_ms:.2f} ms)")
+        for name, (lanes, paused, shard) in K.FLEET_CHUNK_CASES.items():
+            fl = K.fleet_chunk_vs_plain(dev, n_lanes=lanes, paused=paused,
+                                        shard=shard)
+            out[f"{name}_chunk"] = fl
+            last = shard.stop - 1
+            for key, what in (
+                    ("whole", f"the {lanes}-lane fleet chunk (lane "
+                     f"{paused} paused, lanes on their own clocks, delays "
+                     "and schedules) against B3's plain version"),
+                    ("shard", f"lanes {shard.start}..{last} at plant0 = "
+                     f"{shard.start} against lanes {shard.start}..{last} "
+                     f"of the {lanes}-lane chunk")):
+                d = fl[key]
+                check(d["max_abs_err"] == 0.0 and d["nan_equal"]
+                      and d["ints_equal"],
+                      f"MESH-1: {what}: bit-equal ({d})")
+            check(fl["launches"] == 1, f"MESH-1: the {lanes}-lane fleet "
+                  f"chunk launched B3 {fl['launches']} time(s)")
+        report["mesh_1"] = out
+        return True
+
+    serve_fleet_8()
+    serve_fleet_254()
+    fleet_ticks()
+    net_serve()
+    mesh_one()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -2163,6 +2555,14 @@ SERVE_CHUNK = 3600
 SERVE_WINDOW_S = 10.0
 SERVE_RATE_WINDOW_S = 3.0
 SERVE_TICKS = 60
+# SERVE-FLEET-8/254's steps a chunk, least serving windows and the window
+# over which the served rate is read [s]; NET-SERVE-3's
+FLEET_CHUNK = 1024
+FLEET_WINDOW_S = {8: 10.0, 254: 10.0}
+FLEET_RATE_WINDOW_S = 3.0
+NET_WINDOW_S = 10.0
+NET_DOSE_STEPS = 200
+NET_RATE_WINDOW_S = 3.0
 
 
 def fmt(x, spec):

@@ -12,8 +12,10 @@ the serving chunk's schedule live on that device. With ``--fused-sensors
 card (``models.plant.plant_serve_chunk``), its plain version on the CPU;
 ``--fused-sensors`` alone steps ``plant_step`` once a tick.
 
-``--fleet > 1`` and ``--network`` are not ported yet (ROADMAP queue A item
-11b): they stop with a parser error.
+``--fleet N`` (N in 2..254) and ``--network FILE`` serve a batched fleet
+behind one endpoint, one Modbus unit per plant (``fleet.py``): a masked
+batched step a tick, or one launch of the fused plant kernel a
+``--serve-chunk`` chunk for the whole fleet.
 
 Structure-for-structure parity with the reference __main__ (reference
 __main__.py:274-480): 5-phase startup (physics, boundary, sensors, Modbus
@@ -876,12 +878,10 @@ def main(argv=None):
     parser.add_argument("--fleet", type=int, default=1,
                         help="Serve N independently controlled plants from "
                              "one Modbus endpoint: unit id u = plant lane "
-                             "u-1 of a batched device ensemble, one jitted "
+                             "u-1 of a batched device ensemble, one "
                              "batched step per tick (fleet.py). No "
                              "reference counterpart (its physics cannot "
-                             "batch); 1 = classic single-plant serving. "
-                             "Not ported yet: values above 1 stop with an "
-                             "error (ROADMAP queue A item 11b).")
+                             "batch); 1 = classic single-plant serving.")
     parser.add_argument("--network", type=str, default=None,
                         help="Serve a CONNECTED reactor network "
                              "(core/network.py): JSON file with 'routing' "
@@ -893,9 +893,7 @@ def main(argv=None):
                              "Modbus unit id stage+1; each unit's "
                              "inlet_flow_rate register commands its "
                              "EXTERNAL source only — routed inter-plant "
-                             "flow is added by the hydraulics solve. Not "
-                             "ported yet: stops with an error (ROADMAP "
-                             "queue A item 11b).")
+                             "flow is added by the hydraulics solve.")
     parser.add_argument("--fleet-no-shard", action="store_true",
                         help="Keep the whole fleet on one device even when "
                              "a multi-chip mesh is visible (default: shard "
@@ -1036,15 +1034,18 @@ def main(argv=None):
                      "log nothing at all")
 
     if args.network:
-        parser.error("--network (a connected reactor network served per "
-                     "Modbus unit) is not ported yet: ROADMAP queue A item "
-                     "11b")
-    if args.fleet > 254:
+        import json
+        with open(args.network) as f:
+            spec = json.load(f)
+        n_net = len(spec["routing"])
+        if args.fleet not in (1, n_net):
+            parser.error(f"--fleet {args.fleet} conflicts with the "
+                         f"{n_net}-plant network topology in {args.network}")
+        args.fleet = n_net
+        args.network_spec = spec
+    elif args.fleet > 254:
         parser.error(f"--fleet is capped at 254 (the Modbus unit-id "
                      f"space, ids 1..254), got {args.fleet}")
-    if args.fleet > 1:
-        parser.error("--fleet > 1 (a batched fleet of plants) is not ported "
-                     "yet: ROADMAP queue A item 11b")
     if args.fleet < 1:
         parser.error(f"--fleet must be >= 1, got {args.fleet}")
 
@@ -1057,6 +1058,12 @@ def main(argv=None):
         deadline = float(os.environ.get("WT_BACKEND_PROBE_DEADLINE", "60"))
         select_devices(1, probe_deadline=deadline, log=logger.info)
     device = resolve_device(args.device)
+
+    if args.fleet > 1 or args.network:
+        from ics_wt_physicsengine_torch.fleet import main_fleet
+        # this module object, whose ``running`` the signal handler clears
+        # (under ``python -m`` it is ``__main__``, not the package module)
+        return main_fleet(args, device, orchestrator=sys.modules[__name__])
 
     logger.info("=" * 70)
     logger.info("WATER TREATMENT REACTOR SIMULATION (PYTORCH, %s)",
@@ -1414,6 +1421,7 @@ def main(argv=None):
                     sim_time)
 
     commanded = boundary   # last commanded target (actuator slew endpoint)
+    failure = None
     try:
         while running and sim_time < args.duration:
             step_start = time.monotonic()
@@ -1449,9 +1457,9 @@ def main(argv=None):
                     readings = _readings_from_chunk(
                         result, sim_time + chunk * args.dt)
                 except Exception as e:  # noqa: BLE001
-                    logger.error("Physics chunk failed: %s",
-                                 type(e).__name__)
-                    break
+                    logger.error("Physics chunk failed: %s: %s",
+                                 type(e).__name__, e)
+                    raise
 
                 if slave:
                     if not update_modbus_inputs(
@@ -1523,8 +1531,9 @@ def main(argv=None):
                     else:
                         state = reactor.step(args.dt, boundary=boundary)
                 except Exception as e:  # noqa: BLE001
-                    logger.error("Physics step failed: %s", type(e).__name__)
-                    break
+                    logger.error("Physics step failed: %s: %s",
+                                 type(e).__name__, e)
+                    raise
 
                 current_sim_time = sim_start_time + sim_time
                 if fused_plant is None:
@@ -1596,7 +1605,10 @@ def main(argv=None):
     except KeyboardInterrupt:
         logger.info("Keyboard interrupt received")
     except Exception as e:  # noqa: BLE001
-        logger.error("Simulation error: %s", type(e).__name__)
+        # a failed step, chunk or launch ends the run with an error, after
+        # the checkpoint and the servers' shutdown below
+        logger.error("Simulation error: %s: %s", type(e).__name__, e)
+        failure = e
     finally:
         logger.info("Shutting down...")
         write_checkpoint()
@@ -1614,8 +1626,11 @@ def main(argv=None):
             logger.info("Stopping Modbus server...")
             with suppress(Exception):
                 slave.stop()
-        logger.info("Simulation stopped cleanly (t=%.0fs, %d steps)",
-                    sim_time, step_count)
+        if failure is None:
+            logger.info("Simulation stopped cleanly (t=%.0fs, %d steps)",
+                        sim_time, step_count)
+    if failure is not None:
+        raise SystemExit(1) from failure
     return 0
 
 

@@ -36,12 +36,16 @@
 //   kind shares, runs converged (sensors.cuh).
 // - randomness: lane k generates only the Philox4x32-10 blocks that cover
 //   its own words (3 or 4 of them, 24 a plant-step in place of 19, the
-//   design's extra cost), with the counter (step0 + step, plant, block, 0)
-//   of the plant-wide stream; the wrapper passes each sensor's first block
-//   and word skip. A serving loop that launches once per chunk passes its
-//   global step count as step0, so that the noise of a run does not depend
-//   on how it is chunked. Injected words ([n_steps, 76, B]) are read
-//   directly and ignore step0.
+//   design's extra cost), with the counter (step0 + step, plant0 + plant,
+//   block, 0) of the plant-wide stream; the wrapper passes each sensor's
+//   first block and word skip. A serving loop that launches once per chunk
+//   passes its global step count as step0, so that the noise of a run does
+//   not depend on how it is chunked, and a launch over lanes plant0 ..
+//   plant0 + B - 1 of a larger fleet (one card's shard) passes plant0, so
+//   that the noise does not depend on how the fleet is split. Injected
+//   words ([n_steps, 76, B]) are read directly and ignore both.
+// - clocks: each plant keeps its own clock (time [B]): a fleet whose
+//   paused lanes held their clocks runs its lanes at different times.
 // - overlap: after a step's bounds the physics threads publish (pH,
 //   chlorine, temperature) into tap buffer step % 2 and the whole block
 //   meets at one __syncthreads; the sensor lanes then read that buffer
@@ -102,16 +106,18 @@ constexpr int kStaticsInts = sizeof(PlantStatics) / sizeof(int);
 template <typename S>
 struct PlantArgs {
   const S* params;           // [16, B]
-  const S* forcing;          // [10, B], or [n_steps, 10] when scheduled
+  const S* forcing;          // [10, B]; [n_steps, 10] when scheduled is
+                             // 1 (one schedule), [n_steps, 10, B] when 2
+                             // (a schedule per plant)
   const S* sensor_params;    // [98, B]
   const S* carry_float_in;   // [94, B]
   const int* carry_int_in;   // [28, B]
   const int* delay_steps;    // [4, B]
   const uint32_t* words;     // [n_steps, 76, B], or null: Philox
-  const S* time_in;          // [1]
+  const S* time_in;          // [B]: each plant's clock
   const S *ph0, *cl0, *t0;   // [B, Z]
   S *ph, *cl, *t;            // [B, Z]
-  S* time_out;               // [1]
+  S* time_out;               // [B]
   S* carry_float_out;        // [94, B]
   int* carry_int_out;        // [28, B]
   S* hist[kLineSensors];     // [d_max + 1, B], lead-in on entry
@@ -121,6 +127,7 @@ struct PlantArgs {
   PlantStatics statics;
   unsigned long long seed;
   uint32_t step0;            // the Philox counter of step 0
+  uint32_t plant0;           // the Philox counter of plant 0
   int scheduled, stages, batch, n_zones, plants_per_block, physics_threads,
       sensor_stride, n_steps, substeps, record_every;
   StepSizes<S> h;
@@ -203,6 +210,21 @@ __device__ __forceinline__ S delayed_tap(S* __restrict__ hist, int d_max,
   return is_nan(v) ? hist[plant] : v;
 }
 
+// Forcing modes (PlantArgs::scheduled): constant [10, B], one schedule
+// [n_steps, 10] for every plant, or a schedule per plant [n_steps, 10, B]
+// (a fleet's chunk, whose lanes slew toward their own commands).
+constexpr int kSharedSchedule = 1;
+constexpr int kPlantSchedule = 2;
+
+// Column 0 of plant ``plant``'s row of step ``step`` in a per-plant
+// schedule; column c lies c * batch further on.
+template <typename S>
+__device__ __forceinline__ const S* plant_row(const S* forcing, int step,
+                                              int plant, int batch) {
+  return forcing + static_cast<int64_t>(step) * kBoundaryCols * batch +
+         plant;
+}
+
 // The total inflow the flow meter reads: the same three-term sum as the
 // reference's, from a plant's forcing column or the step's schedule row.
 template <typename Get>
@@ -240,11 +262,14 @@ __device__ __forceinline__ void physics_role(
                                 PhysicsBarrier{a.physics_threads}};
 
   S ph = a.ph0[idx], cl = a.cl0[idx], t = a.t0[idx];
-  S time = a.time_in[0];
+  S time = a.time_in[pl];
   for (int step = 0; step < a.n_steps; ++step) {
-    if (a.scheduled) {
+    if (a.scheduled == kSharedSchedule) {
       const S* row = a.forcing + static_cast<int64_t>(step) * kBoundaryCols;
       b = boundary_terms(p, [&](int c) { return __ldg(row + c); });
+    } else if (a.scheduled == kPlantSchedule) {
+      const S* row = plant_row(a.forcing, step, pl, batch);
+      b = boundary_terms(p, [&](int c) { return __ldg(row + c * batch); });
     }
     for (int sub = 0; sub < a.substeps; ++sub) {
       substep<S, kRkc>(p, b, x, rkc, a.stages, a.h, ph, cl, t);
@@ -262,7 +287,7 @@ __device__ __forceinline__ void physics_role(
     a.cl[idx] = cl;
     a.t[idx] = t;
   }
-  if (blockIdx.x == 0 && tid == 0) a.time_out[0] = time;
+  if (active && zone == 0) a.time_out[plant] = time;
 }
 
 // A sensor lane: one (plant, sensor) pair, reading step s from tap[s % 2]
@@ -324,7 +349,7 @@ __device__ __forceinline__ void sensor_role(
     }
   }
 
-  S time = a.time_in[0];
+  S time = a.time_in[plant < batch ? plant : batch - 1];
   for (int step = 0; step < a.n_steps; ++step) {
     __syncthreads();  // the physics threads have published this step
     time = time + a.dt;
@@ -333,9 +358,13 @@ __device__ __forceinline__ void sensor_role(
     const S ph_zone = in[0][tap_at];
     const S cl_zone = in[1][tap_at];
     const S t_zone = in[2][tap_at];
-    if (a.scheduled && kind == kKindFlow) {
+    if (a.scheduled == kSharedSchedule && kind == kKindFlow) {
       const S* row = a.forcing + static_cast<int64_t>(step) * kBoundaryCols;
       flow_total = total_inflow([&](int c) { return __ldg(row + c); });
+    } else if (a.scheduled == kPlantSchedule && kind == kKindFlow) {
+      const S* row = plant_row(a.forcing, step, plant, batch);
+      flow_total =
+          total_inflow([&](int c) { return __ldg(row + c * batch); });
     }
 
     // the kind's true value, delayed through its sample line
@@ -366,8 +395,8 @@ __device__ __forceinline__ void sensor_role(
       }
     } else {
       sensor_step_words(a.seed, a.step0 + static_cast<uint32_t>(step),
-                        static_cast<uint32_t>(plant), block, n_blocks, skip,
-                        w);
+                        a.plant0 + static_cast<uint32_t>(plant), block,
+                        n_blocks, skip, w);
     }
     S n[8], u[4];
     rand_from_words<S, 8, 3>(w, n, u);
@@ -456,9 +485,10 @@ int launch(const void* params, const void* forcing, int scheduled,
            const double* rkc_host, int stages, const void* sensor_params,
            const void* carry_float_in, const int* carry_int_in,
            const int* delay_steps, const int* words,
-           unsigned long long seed, unsigned step0, const void* time_in,
-           const void* ph0, const void* cl0, const void* t0, void* ph,
-           void* cl, void* t, void* time_out, void* carry_float_out,
+           unsigned long long seed, unsigned step0, unsigned plant0,
+           const void* time_in, const void* ph0, const void* cl0,
+           const void* t0, void* ph, void* cl, void* t, void* time_out,
+           void* carry_float_out,
            int* carry_int_out, void* const* hist, void* readings,
            int* faults, const int* statics, int batch,
            int n_zones, int plants_per_block, int physics_threads,
@@ -466,6 +496,7 @@ int launch(const void* params, const void* forcing, int scheduled,
            double h_step, double dt, cudaStream_t stream) {
   const int sensor_threads = (kSensors * sensor_stride + 31) / 32 * 32;
   if (batch < 1 || n_zones < 1 || n_zones > kMaxZones || n_steps < 0 ||
+      scheduled < 0 || scheduled > kPlantSchedule ||
       substeps < 1 || record_every < 1 ||
       (stages != 0 && (stages < 2 || stages > kMaxStages)) ||
       plants_per_block < 1 || sensor_stride < plants_per_block ||
@@ -518,6 +549,7 @@ int launch(const void* params, const void* forcing, int scheduled,
   }
   a.seed = seed;
   a.step0 = step0;
+  a.plant0 = plant0;
   a.scheduled = scheduled;
   a.stages = stages;
   a.batch = batch;
@@ -565,7 +597,9 @@ extern "C" {
 // B3. Returns the cudaError_t of the launch (0 on success). ``hist`` is a
 // host array of the four history pointers and ``statics`` a host array of
 // kStaticsInts (74) ints; ``words`` is null for the Philox stream under
-// ``seed``, whose step counter starts at ``step0``. ``faults`` is null, or
+// ``seed``, whose step counter starts at ``step0`` and plant counter at
+// ``plant0``. ``time_in``/``time_out`` hold each plant's clock. ``faults``
+// is null, or
 // receives each recorded reading's fault code beside ``readings``. A block
 // holds ``plants_per_block`` plants on ``physics_threads`` (a multiple of
 // 32, at least plants_per_block * n_zones) physics threads
@@ -577,9 +611,10 @@ int wt_plant_rollout(int is_double, const void* params, const void* forcing,
                      const void* sensor_params, const void* carry_float_in,
                      const int* carry_int_in, const int* delay_steps,
                      const int* words, unsigned long long seed,
-                     unsigned step0, const void* time_in, const void* ph0,
-                     const void* cl0, const void* t0, void* ph, void* cl,
-                     void* t, void* time_out, void* carry_float_out,
+                     unsigned step0, unsigned plant0, const void* time_in,
+                     const void* ph0, const void* cl0, const void* t0,
+                     void* ph, void* cl, void* t, void* time_out,
+                     void* carry_float_out,
                      int* carry_int_out, void* const* hist, void* readings,
                      int* faults, const int* statics, int batch, int n_zones,
                      int plants_per_block, int physics_threads,
@@ -591,15 +626,16 @@ int wt_plant_rollout(int is_double, const void* params, const void* forcing,
     return wt::launch<double>(
         params, forcing, scheduled, rkc, stages, sensor_params,
         carry_float_in, carry_int_in, delay_steps, words, seed, step0,
-        time_in, ph0, cl0, t0, ph, cl, t, time_out, carry_float_out,
+        plant0, time_in, ph0, cl0, t0, ph, cl, t, time_out, carry_float_out,
         carry_int_out, hist, readings, faults, statics, batch, n_zones,
         plants_per_block, physics_threads, sensor_stride, n_steps, substeps,
         record_every, h_step, dt, s);
   }
   return wt::launch<float>(
       params, forcing, scheduled, rkc, stages, sensor_params, carry_float_in,
-      carry_int_in, delay_steps, words, seed, step0, time_in, ph0, cl0, t0,
-      ph, cl, t, time_out, carry_float_out, carry_int_out, hist, readings,
+      carry_int_in, delay_steps, words, seed, step0, plant0, time_in, ph0,
+      cl0, t0, ph, cl, t, time_out, carry_float_out, carry_int_out, hist,
+      readings,
       faults, statics, batch, n_zones, plants_per_block, physics_threads,
       sensor_stride, n_steps, substeps, record_every, h_step, dt, s);
 }

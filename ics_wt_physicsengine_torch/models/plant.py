@@ -450,10 +450,11 @@ def _join_rings(old: SB.SensorCarry, new: SB.SensorCarry, window: int
 def plant_serve_chunk(params: PlantParams, plant: PlantState,
                       schedule: R.BoundaryConditions, *, dt: float,
                       substeps: int, stages=None, record_every: int = 1,
-                      seed: int = 0, step0: int = 0, rng: str = "philox",
-                      bits=None) -> ServeChunk:
+                      seed: int = 0, step0: int = 0, plant0: int = 0,
+                      rng: str = "philox", bits=None) -> ServeChunk:
     """One serving chunk: advance the plant under a per-step boundary
-    schedule (``[n_steps]`` fields) and return what the serving loop reads
+    schedule (``[n_steps]`` fields, or ``[n_steps, B]`` fields of a
+    schedule per plant: a fleet's) and return what the serving loop reads
     (``ServeChunk``): the last step's readings for the register snapshot,
     values and fault codes at every ``record_every``-th step for the
     history (the record starts with step ``record_every - 1``; a chunk
@@ -468,8 +469,10 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
 
     Randomness: the kernel's Philox stream of ``seed`` from global step
     ``step0`` (pass the serving loop's step count and the same seed every
-    chunk: a run's noise then does not depend on how it is chunked), or the
-    injected ``bits`` ``[n_steps, 76, B]`` with ``rng="bits"``. The
+    chunk: a run's noise then does not depend on how it is chunked) and
+    plant ``plant0`` (the first lane of this batch in a fleet split over
+    cards: the noise then does not depend on the split), or the injected
+    ``bits`` ``[n_steps, 76, B]`` with ``rng="bits"``. The
     ``plant_step`` loop draws from a ``torch.Generator`` seeded with
     ``seed`` and ``step0`` (different noise every chunk, not
     chunk-invariant).
@@ -498,7 +501,8 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
             FP.table_runner(params, plant), params, plant, schedule, dt=dt,
             substeps=substeps, n_steps=n_steps, stages=stages,
             record_every=every, bits=bits, seed=seed,
-            consume_line=True, step0=step0, record_faults=True)
+            consume_line=True, step0=step0, plant0=plant0,
+            record_faults=True)
         for attr, _, _, _, d_max in FP.sensor_statics(params, dt):
             old = getattr(plant, attr).base
             if d_max > 0 and old.line_values is not None \

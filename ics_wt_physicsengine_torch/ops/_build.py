@@ -132,8 +132,8 @@ def bind(name: str, path: Path):
     elif name == "fused_plant":
         lib.wt_plant_rollout.argtypes = (
             [i32, ptr, ptr, i32, ptr, i32]      # type, tables, rkc, stages
-            + [ptr] * 5 + [u64, ctypes.c_uint]  # sensor tables, words, seed,
-                                                # step0
+            + [ptr] * 5 + [u64]                 # sensor tables, words, seed
+            + [ctypes.c_uint] * 2               # step0, plant0
             + [ptr] * 14                        # time, state, outputs
             + [i32] * 8 + [f64, f64, ptr])      # sizes, h_step, dt, stream
         lib.wt_plant_rollout.restype = i32

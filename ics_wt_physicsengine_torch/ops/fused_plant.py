@@ -10,7 +10,9 @@ launch advances every plant ``n_steps``: per step the physics of kernels
 B1/B2, then all seven instruments read the new state (random words to
 normals and uniforms, zone taps, four sample-line histories, base pipeline
 plus overlay), and the readings are recorded every ``record_every`` steps.
-Forcing is constant or a ``[n_steps]`` schedule that all plants share.
+Forcing is constant, a ``[n_steps]`` schedule that all plants share, or a
+``[n_steps, B]`` schedule per plant (a fleet's chunk, whose lanes slew
+toward their own commands).
 
 Layout (``plant_geometry``): a block holds whole plants on two kinds of
 warp, physics warps with one thread per (plant, zone) as in B1/B2, and
@@ -39,14 +41,20 @@ incoming and an in-rollout sample resolve by ring slot; a rollout shorter
 than a line's delay loses earlier history beyond the rebuilt window.
 
 Randomness: ``rng="philox"`` (production) is Philox4x32-10 keyed by the
-64-bit ``seed`` with counter (step0 + step, plant, word block 0..18, 0),
-the step counter taken modulo 2^32; the stream depends on the global step
-and the plant only, and ``philox_words`` reproduces it in integer tensor
-arithmetic. A serving loop that launches once per chunk passes its step
-count as ``step0`` (default 0), so that a run's noise does not depend on
-how it is chunked. ``rng="bits"`` consumes caller-supplied int32
-words ``[n_steps, N_WORDS, B]``, one stream per plant. Uniforms take a
-word's top 24 bits, normals are Box-Muller pairs (``rand_from_words``).
+64-bit ``seed`` with counter (step0 + step, plant0 + plant, word block
+0..18, 0), both counters taken modulo 2^32; the stream depends on the global
+step and the global plant only, and ``philox_words`` reproduces it in
+integer tensor arithmetic. A serving loop that launches once per chunk
+passes its step count as ``step0`` (default 0), so that a run's noise does
+not depend on how it is chunked; a launch over lanes ``plant0 ..`` of a
+larger fleet (one card's shard, ``parallel.mesh``) passes ``plant0``
+(default 0), so that the noise does not depend on how the fleet is split.
+``rng="bits"`` consumes caller-supplied int32 words ``[n_steps, N_WORDS,
+B]``, one stream per plant. Uniforms take a word's top 24 bits, normals
+are Box-Muller pairs (``rand_from_words``).
+
+Clocks: every plant keeps its own clock (``time`` ``[B]``), so that a
+fleet whose paused lanes held their clocks runs in one launch.
 
 Fault record: with ``record_faults`` the kernel and its plain version also
 write each recorded reading's fault code, int32 ``[n_steps //
@@ -212,7 +220,7 @@ def plant_ops(batch: int, n_zones: int, n_steps: int, substeps: int,
 
 
 def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
-                hist_slots: int, scheduled: bool, bits: bool,
+                hist_slots: int, scheduled: int, bits: bool,
                 itemsize: int = 4, faults: bool = False) -> int:
     """Bytes a launch must move: every input read once, every output
     written once. ``hist_slots`` is the sum of the four histories' slot
@@ -220,8 +228,8 @@ def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
     state = 3 * batch * n_zones * itemsize
     tables = (len(F.PARAM_COLS) + N_PCOLS) * batch * itemsize \
         + 4 * batch * 4
-    forcing = (n_steps if scheduled else batch) * len(F.BOUNDARY_FIELDS) \
-        * itemsize
+    forcing = (batch, n_steps, n_steps * batch)[int(scheduled)] \
+        * len(F.BOUNDARY_FIELDS) * itemsize
     carries = batch * (N_FLOAT_CCOLS * itemsize + N_INT_CCOLS * 4)
     hist = hist_slots * batch * itemsize
     readings = (n_steps // record_every) * len(SENSORS) * batch \
@@ -370,17 +378,19 @@ def philox4x32_10(counter, key):
 
 
 def philox_words(seed: int, step0: int, n_steps: int, batch: int,
-                 device) -> torch.Tensor:
+                 device, plant0: int = 0) -> torch.Tensor:
     """The kernel's word stream for steps ``step0 .. step0 + n_steps - 1``
-    of ``batch`` plants, as int32 ``[n_steps, N_WORDS, batch]``: nineteen
-    Philox blocks per plant and step with counter (step mod 2^32, plant,
-    block, 0) under the key ``seed``."""
+    of plants ``plant0 .. plant0 + batch - 1``, as int32 ``[n_steps,
+    N_WORDS, batch]``: nineteen Philox blocks per plant and step with
+    counter (step mod 2^32, plant mod 2^32, block, 0) under the key
+    ``seed``."""
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     i64 = dict(dtype=torch.int64, device=device)
     step = (torch.arange(step0, step0 + n_steps, **i64)
             & _MASK32)[:, None, None]
     block = torch.arange(N_WORDS // 4, **i64)[None, :, None]
-    plant = torch.arange(batch, **i64)[None, None, :]
+    plant = (torch.arange(plant0, plant0 + batch, **i64)
+             & _MASK32)[None, None, :]
     shape = (n_steps, N_WORDS // 4, batch)
     out = philox4x32_10(
         (step.expand(shape), plant.expand(shape), block.expand(shape),
@@ -403,9 +413,10 @@ def philox_words_kernel(seed: int, n_steps: int, batch: int,
     lib = _build.load("fused_plant")
     out = torch.empty((n_steps, N_WORDS, batch), dtype=torch.int32,
                       device=device)
-    err = lib.wt_philox_words(int(seed) & 0xFFFFFFFFFFFFFFFF, n_steps, batch,
-                              out.data_ptr(),
-                              torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):     # the launch's current device
+        err = lib.wt_philox_words(
+            int(seed) & 0xFFFFFFFFFFFFFFFF, n_steps, batch, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError("philox words kernel launch failed: "
                            f"{lib.wt_plant_error_string(err).decode()}")
@@ -548,14 +559,32 @@ def sensor_statics(params, dt: float):
 # ---------------------------------------------------------------------------
 
 
+# Forcing modes (the kernel's ``scheduled``): constant ``[10, B]``, one
+# schedule ``[n_steps, 10]``, or a schedule per plant ``[n_steps, 10, B]``.
+FORCING_CONSTANT, FORCING_SHARED, FORCING_PER_PLANT = 0, 1, 2
+
+
+def plant_schedule_table(schedule: R.BoundaryConditions, n_steps: int,
+                         batch: int, dtype, device) -> torch.Tensor:
+    """Per-plant forcing as a ``[n_steps, 10, B]`` table: a ``[n_steps,
+    B]`` field per step and plant, a ``[n_steps]`` field per step, a scalar
+    for every step and plant."""
+    cols = []
+    for name in F.BOUNDARY_FIELDS:
+        x = torch.as_tensor(getattr(schedule, name), device=device).to(dtype)
+        x = x.reshape(tuple(x.shape) + (1,) * (2 - x.ndim))
+        cols.append(x.expand(n_steps, batch))
+    return torch.stack(cols, dim=1).contiguous()
+
+
 @dataclass
 class PlantTables:
     """One rollout's inputs as contiguous tables on one device."""
 
     statics: tuple              # sensor_statics(...)
-    scheduled: bool
+    scheduled: int              # FORCING_CONSTANT, _SHARED or _PER_PLANT
     ptab: torch.Tensor          # [16, B] reactor parameters
-    forcing: torch.Tensor       # [10, B], or [n_steps, 10] when scheduled
+    forcing: torch.Tensor       # [10, B], [n_steps, 10] or [n_steps, 10, B]
     sensor_params: torch.Tensor  # [N_PCOLS, B]
     carry_float: torch.Tensor   # [N_FLOAT_CCOLS, B]
     carry_int: torch.Tensor     # [N_INT_CCOLS, B] int32
@@ -564,7 +593,7 @@ class PlantTables:
     ph: torch.Tensor            # [B, Z]
     cl: torch.Tensor
     t: torch.Tensor
-    time: torch.Tensor          # [1]: the clock all plants share
+    time: torch.Tensor          # [B]: each plant's clock
 
 
 @dataclass
@@ -572,7 +601,7 @@ class PlantResult:
     ph: torch.Tensor            # [B, Z]
     cl: torch.Tensor
     t: torch.Tensor
-    time: torch.Tensor          # [1]
+    time: torch.Tensor          # [B]
     carry_float: torch.Tensor   # [N_FLOAT_CCOLS, B]
     carry_int: torch.Tensor     # [N_INT_CCOLS, B]
     hist: List[torch.Tensor]    # 4 x [d_max + 1, B]
@@ -601,15 +630,26 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
     dtype, device = ph.dtype, ph.device
     statics = sensor_statics(params, dt)
 
-    scheduled = any(getattr(getattr(boundary, name), "ndim", 0) >= 1
-                    for name in F.BOUNDARY_FIELDS)
-    if scheduled:
+    ndims = {name: getattr(getattr(boundary, name), "ndim", 0)
+             for name in F.BOUNDARY_FIELDS}
+    scheduled = FORCING_CONSTANT if max(ndims.values()) == 0 \
+        else FORCING_SHARED if max(ndims.values()) == 1 \
+        else FORCING_PER_PLANT
+    if scheduled != FORCING_CONSTANT:
         lengths = {int(getattr(boundary, name).shape[0])
-                   for name in F.BOUNDARY_FIELDS
-                   if getattr(getattr(boundary, name), "ndim", 0) >= 1}
+                   for name, nd in ndims.items() if nd >= 1}
         if lengths != {n_steps}:
             raise ValueError(f"schedule fields have length {lengths}; "
                              f"expected n_steps={n_steps}")
+    if scheduled == FORCING_PER_PLANT:
+        if any(tuple(getattr(boundary, name).shape) != (n_steps, batch)
+               for name, nd in ndims.items() if nd == 2) \
+                or max(ndims.values()) > 2:
+            raise ValueError(f"per-plant schedule fields must be "
+                             f"[{n_steps}, {batch}]")
+        forcing = plant_schedule_table(boundary, n_steps, batch, dtype,
+                                       device)
+    elif scheduled == FORCING_SHARED:
         forcing = F.schedule_table(boundary, n_steps, dtype, device)
     else:
         forcing = F.boundary_table(boundary, batch, dtype, device)
@@ -657,7 +697,7 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
         delay_steps=torch.stack(delay_steps).contiguous(), lead=lead,
         ph=prep(state.pH), cl=prep(state.chlorine),
         t=prep(state.temperature),
-        time=state.time.to(dtype).reshape(-1)[:1].contiguous())
+        time=state.time.to(dtype).reshape(-1).expand(batch).contiguous())
 
 
 def _words_for(bits, batch, n_steps, device):
@@ -732,10 +772,12 @@ def _pack_carries(carries, like_float, like_int):
 def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
                 n_steps: int, stages: Optional[int] = None,
                 record_every: int = 1, bits=None, seed: int = 0,
-                step0: int = 0, record_faults: bool = False) -> PlantResult:
+                step0: int = 0, plant0: int = 0,
+                record_faults: bool = False) -> PlantResult:
     """Plain PyTorch version of kernel B3 on tables: a Python loop over
     steps. ``bits`` None draws the Philox stream of ``seed`` from step
-    ``step0``; ``record_faults`` records the fault codes too."""
+    ``step0`` and plant ``plant0``; ``record_faults`` records the fault
+    codes too."""
     ph, cl, t = tables.ph, tables.cl, tables.t
     batch, n_zones = ph.shape
     dtype, device = ph.dtype, ph.device
@@ -784,15 +826,18 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
     words_chunk, chunk0 = None, 0
     rows, fault_rows = [], []
     for g in range(n_steps):
-        if tables.scheduled:
+        if tables.scheduled == FORCING_SHARED:
             row = tables.forcing[g]
             step_fn, flow_total = forcing_at(lambda i: row[i])
+        elif tables.scheduled == FORCING_PER_PLANT:
+            row = tables.forcing[g]
+            step_fn, flow_total = forcing_at(lambda i: row[i][:, None])
         carry = (ph, cl, t)
         for _ in range(substeps):
             carry = step_fn(carry)
         ph, cl, t = F._bound(*carry)
         time = time + dt
-        now = time[0]
+        now = time
 
         if bits is not None:
             words = bits[g]
@@ -801,7 +846,7 @@ def plant_plain(tables: PlantTables, *, dt: float, substeps: int,
                 chunk0 = g
                 words_chunk = philox_words(seed, step0 + g,
                                            min(chunk, n_steps - g), batch,
-                                           device)
+                                           device, plant0=plant0)
             words = words_chunk[g - chunk0]
 
         values, faults = [], []
@@ -894,7 +939,8 @@ def _statics_array(statics):
 def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
                  n_steps: int, stages: Optional[int] = None,
                  record_every: int = 1, bits=None, seed: int = 0,
-                 step0: int = 0, record_faults: bool = False) -> PlantResult:
+                 step0: int = 0, plant0: int = 0,
+                 record_faults: bool = False) -> PlantResult:
     """Kernel B3 on CUDA tables (same contract as ``plant_plain``)."""
     from ics_wt_physicsengine_torch.ops import _build
 
@@ -922,12 +968,14 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
             or tables.carry_float.shape != (N_FLOAT_CCOLS, batch) \
             or tables.carry_int.shape != (N_INT_CCOLS, batch) \
             or tables.delay_steps.shape != (len(_LINE_ATTRS), batch) \
-            or tables.time.shape != (1,) \
+            or tables.time.shape != (batch,) \
             or any(x.shape != (d + 1, batch)
                    for x, d in zip(tables.lead, d_max)) \
-            or tables.forcing.shape != (
-                (n_steps, len(F.BOUNDARY_FIELDS)) if tables.scheduled
-                else (len(F.BOUNDARY_FIELDS), batch)):
+            or tables.forcing.shape != {
+                FORCING_CONSTANT: (len(F.BOUNDARY_FIELDS), batch),
+                FORCING_SHARED: (n_steps, len(F.BOUNDARY_FIELDS)),
+                FORCING_PER_PLANT: (n_steps, len(F.BOUNDARY_FIELDS), batch),
+            }[tables.scheduled]:
         raise ValueError(f"{name}: shapes disagree")
     if not 1 <= n_zones <= F.MAX_ZONES:
         raise ValueError(f"{name}: n_zones must be in [1, {F.MAX_ZONES}]")
@@ -956,26 +1004,28 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
     rkc = F._rkc_host_table(stages, h_step) if stages is not None else None
     hist_ptrs = (ctypes.c_void_p * len(out.hist))(
         *(x.data_ptr() for x in out.hist))
-    err = lib.wt_plant_rollout(
-        int(dtype == torch.float64), tables.ptab.data_ptr(),
-        tables.forcing.data_ptr(), int(tables.scheduled),
-        ctypes.cast(rkc, ctypes.c_void_p) if rkc is not None else None,
-        stages or 0, tables.sensor_params.data_ptr(),
-        tables.carry_float.data_ptr(), tables.carry_int.data_ptr(),
-        tables.delay_steps.data_ptr(),
-        words.data_ptr() if words is not None else None,
-        int(seed) & 0xFFFFFFFFFFFFFFFF, int(step0) & _MASK32,
-        tables.time.data_ptr(),
-        tables.ph.data_ptr(), tables.cl.data_ptr(), tables.t.data_ptr(),
-        out.ph.data_ptr(), out.cl.data_ptr(), out.t.data_ptr(),
-        out.time.data_ptr(), out.carry_float.data_ptr(),
-        out.carry_int.data_ptr(), ctypes.cast(hist_ptrs, ctypes.c_void_p),
-        out.readings.data_ptr(),
-        out.faults.data_ptr() if out.faults is not None else None,
-        ctypes.cast(_statics_array(tables.statics), ctypes.c_void_p),
-        batch, n_zones, geometry.plants_per_block, geometry.physics_threads,
-        geometry.sensor_stride, n_steps, substeps, record_every, h_step, dt,
-        torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):     # the launch's current device
+        err = lib.wt_plant_rollout(
+            int(dtype == torch.float64), tables.ptab.data_ptr(),
+            tables.forcing.data_ptr(), int(tables.scheduled),
+            ctypes.cast(rkc, ctypes.c_void_p) if rkc is not None else None,
+            stages or 0, tables.sensor_params.data_ptr(),
+            tables.carry_float.data_ptr(), tables.carry_int.data_ptr(),
+            tables.delay_steps.data_ptr(),
+            words.data_ptr() if words is not None else None,
+            int(seed) & 0xFFFFFFFFFFFFFFFF, int(step0) & _MASK32,
+            int(plant0) & _MASK32, tables.time.data_ptr(),
+            tables.ph.data_ptr(), tables.cl.data_ptr(), tables.t.data_ptr(),
+            out.ph.data_ptr(), out.cl.data_ptr(), out.t.data_ptr(),
+            out.time.data_ptr(), out.carry_float.data_ptr(),
+            out.carry_int.data_ptr(), ctypes.cast(hist_ptrs, ctypes.c_void_p),
+            out.readings.data_ptr(),
+            out.faults.data_ptr() if out.faults is not None else None,
+            ctypes.cast(_statics_array(tables.statics), ctypes.c_void_p),
+            batch, n_zones, geometry.plants_per_block,
+            geometry.physics_threads, geometry.sensor_stride, n_steps,
+            substeps, record_every, h_step, dt,
+            torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.wt_plant_error_string(err).decode()}")
@@ -1007,7 +1057,8 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
                         substeps: int, n_steps: int,
                         stages: Optional[int] = None, record_every: int = 1,
                         rng: str = "philox", bits=None, seed: int = 0,
-                        consume_line: bool = True, step0: int = 0):
+                        consume_line: bool = True, step0: int = 0,
+                        plant0: int = 0):
     """Advance the full instrumented plant ``n_steps`` in one launch of
     kernel B3 (its plain version for a CPU plant).
 
@@ -1030,8 +1081,11 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
     so chaining with the ``plant_step`` loop in either direction is
     sample-exact.
 
-    Constraints: n_zones <= 128; no extension axis; all plants share one
-    clock (plant 0's time).
+    ``plant0``: the batch is lanes ``plant0 ..`` of a larger fleet (the
+    Philox plant counter starts there).
+
+    Constraints: n_zones <= 128; no extension axis. Each plant keeps its
+    own clock.
     """
     if rng not in ("philox", "bits"):
         raise ValueError(f"unknown rng {rng!r} (philox or bits)")
@@ -1044,7 +1098,8 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
     return _rollout_with(table_runner(params, plant), params, plant,
                          boundary, dt=dt, substeps=substeps, n_steps=n_steps,
                          stages=stages, record_every=record_every, bits=bits,
-                         seed=seed, consume_line=consume_line, step0=step0)
+                         seed=seed, consume_line=consume_line, step0=step0,
+                         plant0=plant0)
 
 
 def table_runner(params, plant):
@@ -1062,7 +1117,8 @@ def table_runner(params, plant):
 
 def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
                   stages, record_every, bits, seed, consume_line,
-                  step0: int = 0, record_faults: bool = False):
+                  step0: int = 0, plant0: int = 0,
+                  record_faults: bool = False):
     """``plant_rollout_fused`` with the table-level function ``run``
     (``plant_kernel`` or ``plant_plain``) given: pack the tables, run,
     rebuild the ``PlantState`` and the readings. The kernel checks call it
@@ -1077,7 +1133,7 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
                           consume_line=consume_line)
     out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
               stages=stages, record_every=record_every, bits=bits, seed=seed,
-              step0=step0, record_faults=record_faults)
+              step0=step0, plant0=plant0, record_faults=record_faults)
 
     def unprep(x):
         return x[0] if single else x
@@ -1087,15 +1143,20 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
     col = F.BOUNDARY_FIELDS.index
     total_flow = last[col("inlet_flow_rate")] + last[col("acid_flow_rate")] \
         + last[col("chlorine_flow_rate")]
+    # each plant's clock; a batch that kept one shared clock keeps it
+    time = out.time.to(state.time.dtype)
+    time = time.reshape(state.time.shape) \
+        if state.time.numel() == batch else time[0] + torch.zeros_like(
+            state.time)
     new_reactor = R._update_derived(R.ReactorState(
-        time=out.time[0].to(state.time.dtype) + torch.zeros_like(state.time),
+        time=time,
         pH=unprep(out.ph), chlorine=unprep(out.cl),
         temperature=unprep(out.t),
         flow_rate=total_flow + torch.zeros_like(state.flow_rate)))
 
     # the PlantState again: updated carries, and delay rings rebuilt from
     # the written-back histories
-    t0 = tables.time[0]
+    t0 = tables.time
     sensors_new = {}
     for _, attr, kind in SENSORS:
         old = getattr(plant, attr)

@@ -504,14 +504,18 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
     g = rollout_geometry(n_zones, batch)
     fn = lib.wt_rollout_scheduled if name == "rollout_scheduled_fused" \
         else lib.wt_rollout_fused
-    err = fn(int(dtype == torch.float64), ptab.data_ptr(), forcing.data_ptr(),
-             ctypes.cast(rkc, ctypes.c_void_p) if rkc is not None else None,
-             stages or 0, ph.data_ptr(), cl.data_ptr(), t.data_ptr(),
-             *(x.data_ptr() for x in outs),
-             *((x.data_ptr() for x in traj) if k else (None, None, None)),
-             batch, n_zones, n_steps, substeps, k, h_step, g.layout,
-             g.plants_per_block, g.block_threads,
-             torch.cuda.current_stream(ph.device).cuda_stream)
+    with torch.cuda.device(ph.device):     # the launch's current device
+        err = fn(int(dtype == torch.float64), ptab.data_ptr(),
+                 forcing.data_ptr(),
+                 ctypes.cast(rkc, ctypes.c_void_p) if rkc is not None
+                 else None,
+                 stages or 0, ph.data_ptr(), cl.data_ptr(), t.data_ptr(),
+                 *(x.data_ptr() for x in outs),
+                 *((x.data_ptr() for x in traj) if k
+                   else (None, None, None)),
+                 batch, n_zones, n_steps, substeps, k, h_step, g.layout,
+                 g.plants_per_block, g.block_threads,
+                 torch.cuda.current_stream(ph.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.wt_error_string(err).decode()}")

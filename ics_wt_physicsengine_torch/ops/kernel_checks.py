@@ -72,6 +72,28 @@ def bench_schedule(n_steps: int) -> R.BoundaryConditions:
         ambient_temperature=15.0, heat_loss_coefficient=50.0)
 
 
+def fleet_schedule(n_steps: int, n_plants: int) -> R.BoundaryConditions:
+    """A fleet chunk's forcing, ``[n_steps, n_plants]`` fields: each lane
+    slews its acid and chlorine pumps and its inlet valve from its own start
+    toward its own command, as ``fleet._stack_boundary_schedule`` lays a
+    chunk out under an actuator lag. No two lanes share an inlet-flow row,
+    so a schedule read from another lane's column shows."""
+    t = np.arange(n_steps)[:, None]
+    i = np.arange(n_plants)[None, :]
+    decay = np.exp(-t / 9.0)
+
+    def slew(start, cmd):
+        return cmd + (start - cmd) * decay
+
+    return R.BoundaryConditions(
+        inlet_flow_rate=slew(5.0 + 0.5 * (i % 3) + 0.004 * i,
+                             4.0 + 0.25 * (i % 5)),
+        inlet_pH=7.2, inlet_chlorine=0.5,
+        acid_flow_rate=slew(0.0 * i, 0.05 * (i % 4)),
+        chlorine_flow_rate=slew(0.1 + 0.0 * i, 0.02 * (i % 3)),
+        ambient_temperature=15.0, heat_loss_coefficient=50.0)
+
+
 def stiff_plan(n_zones: int, integrator: str):
     """``(substeps, stages)`` for the stiffest sampled plant (90 rpm
     impeller at 8 L/min): RK4 (``"rk4"``) or RKC2 (``"strict"``/``"fast"``)."""
@@ -208,13 +230,25 @@ B3_CASES = {
         rng="philox", record_every=1),
     # the serving chunk's launch: the Philox counter from a global step
     # past 2^32 (it wraps) and the fault-code record; and the fault record
-    # on the forced fault paths of ``plant_words``
+    # on the forced fault paths of ``plant_words``; and a fleet shard's
+    # chunk: lanes from plant0 = 4 of the fleet, a schedule per lane, each
+    # lane on its own clock (a resumed lane lags); and the 254-unit fleet's
+    # chunk (32 blocks, the last of 6 plants) as the second shard of two,
+    # plant0 = 127, not a multiple of the 8 plants a block holds
     "single-z20-rk4-sched-philox-step0-faults-rec10": dict(
         n_zones=20, n_plants=1, integrator="rk4", scheduled=True,
         rng="philox", record_every=10, step0=(1 << 32) - 25, faults=True),
     "batch64-z5-rk4-sched-bits-faults": dict(
         n_zones=5, n_plants=64, integrator="rk4", scheduled=True,
         rng="bits", record_every=1, faults=True),
+    "batch8-z20-rk4-lanesched-philox-plant0-clocks-faults": dict(
+        n_zones=20, n_plants=8, integrator="rk4", scheduled="per_plant",
+        rng="philox", record_every=4, plant0=4, clocks=True, faults=True,
+        delays=True),
+    "batch254-z20-rk4-lanesched-philox-plant0-clocks-faults": dict(
+        n_zones=20, n_plants=254, integrator="rk4", scheduled="per_plant",
+        rng="philox", record_every=4, plant0=127, clocks=True, faults=True,
+        delays=True),
 }
 B3_STEPS = 60
 
@@ -234,12 +268,15 @@ def _with_base(sensor_params, **changes):
 
 
 def plant_case(n_zones: int, n_plants: int, dtype, device, *,
-               delays: bool = False, taps: bool = False, seed: int = 1):
+               delays: bool = False, taps: bool = False, seed: int = 1,
+               clocks: bool = False):
     """``(params, plant)``: ``make_plant`` when ``n_plants == 1``, else a
     ``make_plant_batch`` from ``seed``. ``delays`` gives the pH-inlet,
     pH-outlet and temperature-inlet lines per-plant delays between 0 and
     30 s (whole steps at dt = 1 s); ``taps`` moves four sensors to interior
-    zones."""
+    zones; ``clocks`` sets plant i's clock i * 37 s behind plant 0's,
+    which starts at (n_plants - 1) * 37 s (a fleet whose lanes were paused
+    for different spans)."""
     cfg = R.ReactorConfiguration(n_zones=n_zones)
     if n_plants == 1:
         params, plant = P.make_plant(cfg, dtype=dtype, device=device)
@@ -255,6 +292,11 @@ def plant_case(n_zones: int, n_plants: int, dtype, device, *,
         params = dataclasses.replace(params, **{
             name: _with_base(getattr(params, name), line_delay_s=d.to(dtype))
             for name, d in lines.items()})
+    if clocks:
+        lead = 37.0 * torch.arange(n_plants - 1, -1, -1, device=device)
+        plant = dataclasses.replace(plant, reactor=dataclasses.replace(
+            plant.reactor, time=plant.reactor.time + lead.to(
+                plant.reactor.time.dtype)))
     if taps:
         zones = {"ph_inlet": 2, "ph_outlet": -2, "chlorine_inlet": 3,
                  "temp_outlet": -4}
@@ -334,12 +376,14 @@ def plant_diff(got, ref) -> dict:
 
 
 def _fused(run, params, plant, boundary, *, substeps, stages, n_steps,
-           record_every=1, bits=None, seed=0, step0=0, record_faults=False):
+           record_every=1, bits=None, seed=0, step0=0, plant0=0,
+           record_faults=False):
     return FP._rollout_with(run, params, plant, boundary, dt=DT,
                             substeps=substeps, n_steps=n_steps,
                             stages=stages, record_every=record_every,
                             bits=bits, seed=seed, consume_line=True,
-                            step0=step0, record_faults=record_faults)
+                            step0=step0, plant0=plant0,
+                            record_faults=record_faults)
 
 
 def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
@@ -349,14 +393,17 @@ def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
     dtype = case.get("dtype", torch.float32)
     params, plant = plant_case(case["n_zones"], case["n_plants"], dtype,
                                device, delays=case.get("delays", False),
-                               taps=case.get("taps", False))
+                               taps=case.get("taps", False),
+                               clocks=case.get("clocks", False))
     substeps, stages = plant_plan(case["n_zones"], case["integrator"])
-    boundary = bench_schedule(n_steps) if case["scheduled"] else BC
+    boundary = fleet_schedule(n_steps, case["n_plants"]) \
+        if case["scheduled"] == "per_plant" \
+        else bench_schedule(n_steps) if case["scheduled"] else BC
     bits = plant_words(n_steps, case["n_plants"], device) \
         if case["rng"] == "bits" else None
     kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
               record_every=case["record_every"], bits=bits, seed=11,
-              step0=case.get("step0", 0),
+              step0=case.get("step0", 0), plant0=case.get("plant0", 0),
               record_faults=case.get("faults", False))
     got = _fused(FP.plant_kernel, params, plant, boundary, **kw)
     torch.cuda.synchronize()
@@ -389,6 +436,69 @@ def serve_chunk_vs_plain(device, n_steps: int = 120, record_every: int = 7,
     torch.cuda.synchronize()
     return got, plant_diff((got.plant, got.values, got.faults),
                            (ref, ref_values, ref_faults)), launches
+
+
+def _lanes(tree, lanes: slice):
+    from ics_wt_physicsengine_torch.parallel.mesh import _map
+    return _map(lambda x: x[lanes] if x.ndim else x, tree)
+
+
+# ``fleet_chunk_vs_plain`` layouts: (lanes, paused lane, shard). Eight lanes
+# fill one B3 block at 20 zones; 254 (the Modbus unit-id cap) fill 32, the
+# last of 6, and the shard of lanes 127..253 starts inside a block and ends
+# in a partial one of 7.
+FLEET_CHUNK_CASES = {
+    "fleet8": (8, 3, slice(4, 8)),
+    "fleet254": (254, 200, slice(127, 254)),
+}
+
+
+def fleet_chunk_vs_plain(device, n_lanes: int = 8, n_steps: int = 120,
+                         record_every: int = 4, paused: int = 3,
+                         shard: slice = slice(4, 8)):
+    """A fleet's chunk on the card (``fleet.serve_chunk_masked``: one B3
+    launch over every lane, each lane on its own clock, line delays and
+    slewing schedule, lane ``paused`` frozen) against B3's plain version on
+    the card with the paused lane put back; and the chunk of lanes
+    ``shard`` alone with ``plant0 = shard.start`` against those lanes of the
+    whole chunk. Returns ``plant_diff`` of each and the whole chunk's
+    launches."""
+    from ics_wt_physicsengine_torch import fleet
+
+    params, plant = plant_case(20, n_lanes, torch.float32, device,
+                               delays=True, clocks=True)
+    substeps, _ = plant_plan(20, "rk4")
+    sched = fleet_schedule(n_steps, n_lanes)
+    sched = R.BoundaryConditions(**{
+        f.name: (torch.as_tensor(getattr(sched, f.name), dtype=torch.float32,
+                                 device=device)
+                 if np.ndim(getattr(sched, f.name)) else
+                 getattr(sched, f.name))
+        for f in dataclasses.fields(sched)})
+    mask = torch.ones(n_lanes, dtype=torch.bool, device=device)
+    mask[paused] = False
+    kw = dict(dt=DT, substeps=substeps, record_every=record_every, seed=11,
+              step0=5000)
+    FP.reset_launch_counts()
+    got = fleet.serve_chunk_masked(params, plant, sched, mask, **kw)
+    launches = FP.LAUNCHES["plant_rollout_fused"]
+    ref, values, faults = _fused(
+        FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
+        n_steps=n_steps, record_every=record_every, seed=11, step0=5000,
+        record_faults=True)
+    ref = fleet.select_lanes(mask, ref, plant)
+    whole = plant_diff((got.plant, got.values, got.faults),
+                       (ref, torch.stack(list(values.values()), dim=1),
+                        torch.stack(list(faults.values()), dim=1)))
+    part = fleet.serve_chunk_masked(
+        _lanes(params, shard), _lanes(plant, shard),
+        fleet._lane_rows(sched, shard, device), mask[shard],
+        plant0=shard.start, **kw)
+    torch.cuda.synchronize()
+    sharded = plant_diff((part.plant, part.values, part.faults),
+                         (_lanes(got.plant, shard), got.values[..., shard],
+                          got.faults[..., shard]))
+    return dict(whole=whole, shard=sharded, launches=launches)
 
 
 def serve_chunks_invariant(device, sizes=(16, 16), record_every: int = 4):

@@ -355,11 +355,13 @@ def ph_kernel(kw, ka1, ka2, ct, alk, ph0, *, iters: int = DEFAULT_ITERS,
     caps = _cap_table(iters, dtype, device)
     stream = torch.cuda.current_stream(device)
     out = torch.empty_like(ph0)
-    err = lib.wt_solve_ph(
-        int(is_double), *(x.data_ptr() for x in tensors), caps.data_ptr(),
-        out.data_ptr(), ph0.numel(), iters, float(tolerance), g.blocks,
-        g.threads, _work_counter(device, stream).data_ptr(),
-        stream.cuda_stream)
+    work = _work_counter(device, stream)
+    with torch.cuda.device(device):     # the launch's current device
+        err = lib.wt_solve_ph(
+            int(is_double), *(x.data_ptr() for x in tensors),
+            caps.data_ptr(), out.data_ptr(), ph0.numel(), iters,
+            float(tolerance), g.blocks, g.threads, work.data_ptr(),
+            stream.cuda_stream)
     if err != 0:
         raise RuntimeError("solve_pH_kernel launch failed: "
                            f"{lib.wt_ph_error_string(err).decode()}")

@@ -481,6 +481,13 @@ WAITS = {
         "one array library in the port: no namespace dispatch": {
             "array_namespace"},
     },
+    "parallel": {
+        "ROADMAP queue A item 9b (zone-sharded step)": {
+            "make_plant_zone_mesh", "make_zone_mesh",
+            "plant_zone_sharded_step", "shard_batch_zones",
+            "shard_state_zones", "zone_sharded_rollout",
+            "zone_sharded_step"},
+    },
     "utils.backend_select": {
         "no CPU fallback in the port: the CPU only when the caller asks": {
             "pin_cpu"},
@@ -505,11 +512,12 @@ PORTED = ("core", "core.thermodynamics", "core.chemistry", "core.transport",
           "modbus.protocols", "modbus.security", "modbus.slave",
           "modbus.client", "modbus.rtu", "modbus.native_slave", "opcua",
           "opcua.encoding", "opcua.messages", "opcua.server",
-          "opcua.client", "__main__")
+          "opcua.client", "__main__", "fleet", "parallel", "parallel.mesh",
+          "parallel.fused", "parallel.multihost")
 PACKAGES = ("core", "sensors", "control", "models", "utils", "modbus",
-            "opcua")
-# modules whose whole public surface is one class
-SINGLE_CLASS = ("utils.history", "utils.netreap", "modbus.client")
+            "opcua", "parallel")
+# modules whose whole public surface is one class or one function
+SINGLE_CLASS = ("utils.history", "utils.netreap", "modbus.client", "fleet")
 
 
 def _public_names(module, package: bool):

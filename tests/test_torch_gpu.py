@@ -159,8 +159,10 @@ def test_b3_matches_plain(cuda, case):
     got, diff = K.b3_vs_plain(spec, cuda)
     plant, readings = got[:2]
     assert diff["nan_equal"] and diff["ints_equal"], diff
-    assert diff["max_abs_err"] <= K.TOL[spec.get("dtype", torch.float32)], \
-        diff
+    # the serving and fleet chunks' cases (the fault record) bit for bit
+    tol = 0.0 if spec.get("faults") else \
+        K.TOL[spec.get("dtype", torch.float32)]
+    assert diff["max_abs_err"] <= tol, diff
     assert bool(torch.isfinite(plant.reactor.pH).all())
     n_rec = K.B3_STEPS // spec["record_every"]
     assert readings["pH_outlet"].shape[0] == n_rec
@@ -232,6 +234,99 @@ def test_serve_chunks_are_invariant_on_the_card(cuda):
     sample-line delay)."""
     assert K.serve_chunks_invariant(cuda)
     assert K.serve_chunks_invariant(cuda, sizes=(8, 8, 12, 12, 12))
+
+
+@pytest.mark.parametrize("case", sorted(K.FLEET_CHUNK_CASES))
+def test_fleet_chunk_on_the_card_matches_plain_and_shards_exactly(cuda,
+                                                                  case):
+    """A fleet's chunk on the card: one B3 launch over 8 lanes (one block)
+    or 254 (32 blocks, the last partial) on their own clocks, delays and
+    slewing schedules with one lane paused, bit-equal to B3's plain version
+    with the paused lane put back; a shard of lanes alone with its
+    ``plant0`` (4, or 127 inside a block) bit-equal to those lanes of the
+    whole chunk."""
+    lanes, paused, shard = K.FLEET_CHUNK_CASES[case]
+    out = K.fleet_chunk_vs_plain(cuda, n_lanes=lanes, paused=paused,
+                                 shard=shard)
+    assert out["launches"] == 1
+    for key in ("whole", "shard"):
+        d = out[key]
+        assert d["max_abs_err"] == 0.0 and d["nan_equal"] \
+            and d["ints_equal"], (key, d)
+
+
+@pytest.mark.parametrize("cards", ["one", "all"])
+def test_sharded_kernels_on_a_mesh_of_cards(cuda, cards):
+    """``parallel.fused`` on a mesh of the first card, and of every visible
+    card: one launch a card, each shard bit-equal to the single-device
+    wrapper on that shard on the first card (mesh position k draws the
+    Philox stream of seed + k * 1_000_003)."""
+    from ics_wt_physicsengine_torch import parallel as PAR
+
+    mesh = PAR.make_mesh(1 if cards == "one" else None)
+    if cards == "all" and mesh.size < 2:
+        pytest.skip("needs two CUDA cards")
+    n = 16 * mesh.size
+    params, state = make_monte_carlo_batch(R.ReactorConfiguration(
+        n_zones=20), n, seed=0, device=cuda)
+    F.reset_launch_counts()
+    got = PAR.sharded_rollout_fused(mesh, dt=1.0, substeps=3,
+                                    n_steps=50)(params, state, K.BC)
+    assert F.LAUNCHES["rollout_fused"] == mesh.size
+    pp, pl = K.plant_case(20, n, torch.float32, cuda)
+    FP.reset_launch_counts()
+    plants, readings = PAR.sharded_plant_rollout_fused(
+        mesh, pp, dt=1.0, substeps=3, n_steps=40, record_every=10,
+        seed=4)(pp, pl, K.BC)
+    assert FP.LAUNCHES["plant_rollout_fused"] == mesh.size
+    for k, dev in enumerate(mesh.devices):
+        lanes = slice(16 * k, 16 * (k + 1))
+        assert got[k].pH.device == dev
+        ref = F.rollout_fused(K._lanes(params, lanes), K._lanes(state, lanes),
+                              K.BC, dt=1.0, substeps=3, n_steps=50)
+        assert K.plant_diff(PAR.gather_batch([got[k]], cuda),
+                            ref)["max_abs_err"] == 0.0
+        d = K.plant_diff(
+            PAR.gather_batch([(plants[k], readings[k])], cuda),
+            FP.plant_rollout_fused(K._lanes(pp, lanes), K._lanes(pl, lanes),
+                                   K.BC, dt=1.0, substeps=3, n_steps=40,
+                                   record_every=10, seed=4 + k * 1_000_003))
+        assert d["max_abs_err"] == 0.0 and d["nan_equal"] \
+            and d["ints_equal"], (k, d)
+
+
+@pytest.mark.parametrize("chunk", [1, 64])
+def test_sharded_fleet_equals_the_one_card_fleet(cuda, chunk, tmp_path):
+    """``--fleet 4`` over every visible card (lanes split, one B3 launch a
+    card a chunk, each from its plant0; per-tick draws made on the first
+    card and split) against ``--fleet-no-shard`` on the first: the
+    checkpointed plants, the generator and the clock bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the fleet shards its lanes over "
+                    "them")
+    from ics_wt_physicsengine_torch import __main__ as orchestrator
+    from ics_wt_physicsengine_torch.utils import checkpoint as CK
+
+    cfg = R.ReactorConfiguration(n_zones=5)
+    saved = []
+    for extra in ([], ["--fleet-no-shard"]):
+        path = str(tmp_path / f"fleet{len(saved)}.npz")
+        orchestrator.running = True
+        assert orchestrator.main([
+            "--no-modbus", "--rtf", "0", "--zones", "5", "--fleet", "4",
+            "--seed", "3", "--serve-chunk", str(chunk), "--duration",
+            str(8 * chunk), "--checkpoint-file", path, *extra]) == 0
+        params, plant = P.make_plant_batch(cfg, 4, seed=3, device=cuda)
+        saved.append((CK.load_pytree(path, {
+            "params": params, "plant": plant,
+            "generator": torch.Generator(device=cuda)}),
+            CK.load_metadata(path)))
+    (a, meta_a), (b, meta_b) = saved
+    assert meta_a["step_count"] == meta_b["step_count"] == 8 * chunk
+    d = K.plant_diff(a["plant"], b["plant"])
+    assert d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"], d
+    assert torch.equal(a["generator"].get_state(),
+                       b["generator"].get_state())
 
 
 def test_b3_rejects_what_it_cannot_run(cuda):

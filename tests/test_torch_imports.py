@@ -53,6 +53,13 @@ def test_serving_modules_are_scanned(module):
     assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "fleet.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/fused.py", "parallel/multihost.py"])
+def test_fleet_and_parallel_modules_are_scanned(module):
+    assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):

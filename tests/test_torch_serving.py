@@ -24,7 +24,13 @@ against the JAX package's orchestrator, on the CPU.
   one seed draw different noise.
 - The live loop: ``--fused-sensors --serve-chunk 32`` answers a Modbus
   client, whose acid command lowers ``pH_outlet``. ``--fleet 2`` and
-  ``--network`` stop with the ROADMAP item-11b error.
+  ``--network`` serve headless (``fleet.py``; its own tests are
+  ``tests/test_torch_fleet.py``).
+- Two repairs of JAX-package defects: ``--serve-chunk`` under the default
+  endless ``--duration`` (JAX ``__main__.py:1366-1367``, ``OverflowError``
+  at the first chunk) runs until stopped; the object path's maintenance of
+  an extension instrument (JAX ``__main__.py:1340``, ``KeyError`` on
+  ``refs[name[:2]]``) completes.
 
 Every run of ``main`` passes ``--rtf 0``; servers bind port 0; socket
 waits are bounded."""
@@ -34,6 +40,7 @@ import math
 import socket
 import threading
 import time
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -519,12 +526,103 @@ def test_live_serve_chunk_answers_a_modbus_client():
     assert not thread.is_alive()
 
 
+TRAIN3 = str(Path(__file__).resolve().parents[1] / "examples"
+             / "train3.json")
+
+
 @pytest.mark.parametrize("flag", [["--fleet", "2"],
-                                  ["--network", "train.json"]])
-def test_fleet_and_network_wait_for_item_11b(flag, capsys):
-    with pytest.raises(SystemExit):
-        TO.main(["--device", "cpu", "--no-modbus", "--rtf", "0", *flag])
-    assert "ROADMAP queue A item 11b" in capsys.readouterr().err
+                                  ["--fleet", "2", "--serve-chunk", "4"],
+                                  ["--network", TRAIN3],
+                                  ["--network", TRAIN3, "--serve-chunk", "4"]],
+                         ids=["fleet", "fleet-chunk", "network",
+                              "network-chunk"])
+def test_fleet_and_network_serve_headless(flag, tmp_path):
+    """``--fleet 2`` and ``--network`` run a few steps or chunks headless
+    and checkpoint the whole fleet."""
+    from ics_wt_physicsengine_torch.utils import load_metadata
+
+    path = str(tmp_path / "fleet.npz")
+    TO.running = True
+    assert TO.main(["--device", "cpu", "--no-modbus", "--rtf", "0",
+                    "--zones", "3", "--duration", "12", "--checkpoint-file",
+                    path, *flag]) == 0
+    meta = load_metadata(path)
+    assert meta["sim_time"] == 12.0 and meta["step_count"] == 12
+    assert meta["fleet"] == (3 if "--network" in flag else 2)
+    assert meta["network"] == ("--network" in flag)
+
+
+def _wait_for(path, seconds):
+    deadline = time.time() + seconds
+    while time.time() < deadline and not path.exists():
+        time.sleep(0.05)
+    return path.exists()
+
+
+def test_serve_chunk_runs_under_the_endless_default_duration(tmp_path):
+    """No --duration: the chunk length is never clamped by int(round(inf))
+    (the JAX orchestrator raises OverflowError at its first chunk); the
+    loop runs until stopped and its clock advances by whole chunks."""
+    from ics_wt_physicsengine_torch.utils import load_metadata
+
+    path = tmp_path / "endless.npz"
+    TO.running = True
+    thread = threading.Thread(target=TO.main, args=([
+        "--device", "cpu", "--no-modbus", "--rtf", "0", "--zones", "3",
+        "--fused-sensors", "--serve-chunk", "8", "--checkpoint-file",
+        str(path), "--checkpoint-hours", "0.01"],), daemon=True)
+    thread.start()
+    try:
+        assert _wait_for(path, 60), "no periodic checkpoint"
+    finally:
+        TO.running = False
+        thread.join(timeout=30)
+    assert not thread.is_alive()
+    meta = load_metadata(str(path))
+    assert meta["sim_time"] >= 36.0 and meta["sim_time"] % 8 == 0
+
+
+def test_object_path_maintains_an_extension_instrument(tmp_path, caplog):
+    """The object path's maintenance with the nitrogen axis on: the ammonia
+    instrument has no calibration reference, and the JAX orchestrator's
+    ``refs[name[:2]]`` raises KeyError there, ending its loop; the port's
+    revives it and keeps its commissioning calibration, twice in 80 s."""
+    from ics_wt_physicsengine_torch.utils import load_metadata
+
+    path = str(tmp_path / "maint.npz")
+    TO.running = True
+    with caplog.at_level("INFO"):
+        assert TO.main(["--device", "cpu", "--no-modbus", "--rtf", "0",
+                        "--zones", "3", "--enable-nitrogen", "--recal-hours",
+                        "0.01", "--duration", "80", "--checkpoint-file",
+                        path]) == 0
+    text = caplog.text
+    assert text.count("sensor maintenance/recalibration done") == 2
+    assert "Simulation error" not in text
+    assert load_metadata(path)["sim_time"] == 80.0
+
+
+@pytest.mark.parametrize("chunk", ["1", "8"])
+def test_a_failed_step_or_chunk_exits_non_zero(tmp_path, monkeypatch, chunk):
+    """A step or chunk that raises (a kernel launch that fails on the card)
+    ends the run with exit code 1, after the checkpoint is written; the JAX
+    orchestrator breaks out of its loop and returns 0."""
+    from ics_wt_physicsengine_torch.models import plant as PL
+
+    def fail(*a, **kw):
+        raise RuntimeError("kernel launch failed")
+
+    monkeypatch.setattr(PL, "plant_serve_chunk" if chunk == "8"
+                        else "plant_step", fail)
+    path = tmp_path / "failed.npz"
+    TO.running = True
+    with pytest.raises(SystemExit) as exc:
+        TO.main(["--device", "cpu", "--no-modbus", "--rtf", "0", "--zones",
+                 "3", "--fused-sensors", "--serve-chunk", chunk,
+                 "--duration", "16", "--checkpoint-file", str(path)])
+    assert exc.value.code == 1
+    assert isinstance(exc.value.__cause__, RuntimeError)
+    assert path.exists()
 
 
 def test_the_card_is_required_unless_the_cpu_is_asked_for(monkeypatch):
