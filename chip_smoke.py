@@ -72,7 +72,7 @@ Phases:
     disinfection, biofilm, phase) on bench.py's bench_full_chemistry
     configuration (models/plant.py::full_chemistry_config, 22 fields per
     zone): 8192 Monte-Carlo plants x 20 zones through core.reactor.rollout
-    (RK4 x 3), float32; bench.py's 1000 steps cut to a 10 s window (the cut
+    (RK4 x 3), float32; bench.py's 1000 steps cut to a 6 s window (the cut
     is printed); plant-steps/s, ms per step, and one step's CUDA kernel
     launches, device time and aten operations (torch.profiler, outside the
     window); the fields finite, >= 0 where clipped, temperature inside the
@@ -80,7 +80,7 @@ Phases:
  5f. the same configuration at 16 plants x 20 zones x 20 steps in float64
     on the card and on the CPU: every field within rtol 1e-9 + atol 1e-12;
  5g. PLANT-EXT-1, the six-axis plant with its ten instruments
-    (make_plant, 20 zones) through plant_rollout_auto for 150 steps (cut
+    (make_plant, 20 zones) through plant_rollout_auto for 60 steps (cut
     from 600 to make room for 5h-5m), which takes the plant_step loop:
     steps/s (host clock) and the share of finite readings per instrument;
     no B3 launch. Phases 5e-5g are plain PyTorch: no hand-written kernel
@@ -88,11 +88,11 @@ Phases:
  5h. CL-4096, bench.py's bench_closed_loop: a 16 x 16 x 4 x 4 dual-PID
     gain grid (4096 lanes) on the 20-zone plant, RKC-fast, float32,
     record=False, through control.rollout_closed_loop; bench.py's 2048
-    steps cut to a 12 s window (printed); plant-steps/s and one step's
+    steps cut to a 6 s window (printed); plant-steps/s and one step's
     CUDA launches, device time and aten operations;
  5i. EKF-1024, bench.py's bench_ekf: 1024 EKFs on the 6-zone plant, 4
     taps, measurement_noise 4e-4, readings from a seeded generator,
-    256 steps (or a 12 s window); filter-steps/s;
+    256 steps (or a 6 s window); filter-steps/s;
  5j. ENKF-8192, bench.py's bench_enkf: 8192 members, 6 zones, inflation
     1.02, localization radius 2.0; member-steps/s;
  5k. MPC-20, examples/mpc_dosing.py's settings (20 zones, dt 60 s, so
@@ -100,7 +100,7 @@ Phases:
     horizon_moves, steps_per_move and iters cut from 6, 10 and 20
     (MPC_CUT, printed); seconds per re-plan;
  5l. TRAIN-3, examples/treatment_train.py: 3 stages of 5 zones, 15%
-    recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 12 s
+    recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 6 s
     window, then its 16-dose booster sweep as one batched call;
     network-steps/s;
  5m. a closed loop, an EKF bank step (vmap of jacfwd) and an MHE step in
@@ -174,21 +174,44 @@ Phases:
     steps its pipes (2 + 3) delay the dose, then moving;
  5x. MESH-1, parallel/ on a mesh of the one card: sharded_rollout_fused
     at MC-4096's shape and sharded_plant_rollout_fused at PLANT-4096's,
-    each one launch and bit-equal to rollout_fused / plant_rollout_fused
-    (mesh position 0 draws ``seed``); a fleet's chunk (8 lanes, one B3
+    each one launch and bit-equal to rollout_fused / plant_rollout_fused;
+    the latter again over the card listed twice, each shard (drawing
+    ``seed``'s Philox stream from its first plant, B3's plant0) bit-equal
+    to its lanes of the one-device call; a fleet's chunk (8 lanes, one B3
     block, and 254 lanes, 32 blocks the last of 6, on their own clocks,
     line delays and slewing schedules, one paused) bit-equal to B3's plain
     version, and lanes 4..7 alone at plant0 = 4 and lanes 127..253 alone
     at plant0 = 127 bit-equal to those lanes of the whole chunk;
+ 5y. ZONE-256-1 and ZONE-256-4, parallel/spatial.py on
+    examples/zone_sharded_highres.py's plant (256 zones, a warm inflow over
+    a cold tank) over a zone mesh of the card and of the card listed four
+    times (64-zone shards, halos at every stage): 3 RK4 steps at
+    default_substeps in float64 against the unsharded rollout on the card
+    (pH and chlorine within 1e-10, temperature 1e-8), then float32
+    RKC-fast (default_rkc_plan, 16 stages at most) timed over a 10 s
+    window: steps/s, one step's launches, device time and idle share; then
+    PZ-2x2, a 2 x 2 plants-by-zones mesh of the card at __graft_entry__.py's
+    8-zone batch, float64, against the unsharded batched step (1e-10). No
+    B1-B4 launch: the zone-sharded step is plain PyTorch, as it is plain
+    XLA in the JAX package;
+ 5z. INTEG-65536, bench.py's integrated batch (65,536 x 20-zone
+    instrumented plants, RKC-fast, record=False): the plain
+    models.plant.plant_rollout_batched (tap lines, packed draws) over a
+    10 s window (plant-steps/s, one step's launches and idle share, no
+    B1-B4 launch) beside the port's route for that workload, B3 through
+    plant_rollout_auto (512 steps a call, one launch a call); the two
+    routes' physics within 1e-9 of each other on 64 plants in float64;
+    then DRYRUN, entry.dryrun_multichip on the card and on the card listed
+    four times: every stage passes, with one B1 launch a shard in "fused";
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u and 5x. Direct kernel calls
+the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x and 5z. Direct kernel calls
 (phases 3, 3b and 3c, the kernel-only times, 5x's comparisons) and phase
-6 lie outside those windows; phases 5d-5q, 5s, 5v and 5w must launch
+6 lie outside those windows; phases 5d-5q, 5s, 5v, 5w and 5y must launch
 none. Every phase from 5t prints the card's name and power limit. Exits
 non-zero, with no result line, when there is no CUDA card, when the package
 is missing, or when any check fails. Times are CUDA-event times after a
@@ -2462,6 +2485,33 @@ def main() -> int:
               f"MESH-1 PLANT-4096 (4096 x 20 x 2000, every 100th): "
               f"sharded_plant_rollout_fused {ms:.2f} ms, one launch, "
               f"bit-equal to plant_rollout_fused ({one_ms:.2f} ms)")
+        # two shards on the card listed twice: each draws seed's stream
+        # from its first plant (plant0), so it equals its lanes of the
+        # one-device call
+        mesh2 = PAR.make_mesh(devices=[dev, dev])
+        fn = PAR.sharded_plant_rollout_fused(mesh2, pp, dt=DT, substeps=m20,
+                                             n_steps=2000, record_every=100,
+                                             seed=7)
+        reset_kernel_counts()
+        ms, (plants, readings) = timed(lambda: fn(pp, pl, policy))
+        counts = kernel_counts()
+        main_launches["plant_rollout_fused"] += counts["plant_rollout_fused"]
+        diffs = []
+        for k in range(2):
+            lanes = slice(2048 * k, 2048 * (k + 1))
+            diffs.append(K.plant_diff(
+                (plants[k], readings[k]),
+                (K._lanes(ref[0], lanes),
+                 {name: v[:, lanes] for name, v in ref[1].items()})))
+        out["plant_4096_two_shards"] = dict(sharded_ms=ms, launches=counts,
+                                            diffs=diffs)
+        check(all(d["max_abs_err"] == 0.0 and d["nan_equal"]
+                  and d["ints_equal"] for d in diffs)
+              and counts == {k: 2 * int(k == "plant_rollout_fused")
+                             for k in counts},
+              f"MESH-1 PLANT-4096 over the card listed twice: "
+              f"{ms:.2f} ms, two launches, each shard bit-equal to its "
+              f"lanes of plant_rollout_fused (plant0 = 0, 2048)")
         for name, (lanes, paused, shard) in K.FLEET_CHUNK_CASES.items():
             fl = K.fleet_chunk_vs_plain(dev, n_lanes=lanes, paused=paused,
                                         shard=shard)
@@ -2488,6 +2538,230 @@ def main() -> int:
     fleet_ticks()
     net_serve()
     mesh_one()
+
+    # ---- 5y-5z. the zone-sharded step, plant_rollout_batched, dryrun ------
+    from ics_wt_physicsengine_torch.models.plant import plant_rollout_batched
+
+    f64 = torch.float64
+    zone_height, zone_volume = 4.0, 2000.0
+    zone_cfg = R.ReactorConfiguration(
+        volume=zone_volume, height=zone_height,
+        diameter=2 * math.sqrt((zone_volume / 1000) / (math.pi * zone_height)),
+        n_zones=ZONE_ZONES, flow_rate=8.0, initial_pH=7.3,
+        initial_chlorine=1.5, temperature=18.0)
+    zone_bc = R.BoundaryConditions(
+        inlet_flow_rate=8.0, inlet_pH=7.6, inlet_chlorine=0.8,
+        inlet_temperature=24.0, ambient_temperature=8.0,
+        heat_loss_coefficient=120.0)
+
+    def zone_state(dtype):
+        """examples/zone_sharded_highres.py's state: a warm inflow over a
+        cold tank (6 C down to 0 C over the column), stratification on."""
+        s0 = R.make_initial_state(zone_cfg, dtype=dtype, device=dev)
+        s0 = dataclasses.replace(s0, temperature=s0.temperature
+                                 + torch.linspace(6.0, 0.0, ZONE_ZONES,
+                                                  dtype=dtype, device=dev))
+        return R._update_derived(s0)
+
+    @phase("path: zone-sharded step (ZONE-256, PZ-2x2)")
+    def zone_sharded():
+        out = {}
+        m_rk4 = R.default_substeps(zone_cfg, DT)
+        m_rkc, s_rkc = R.default_rkc_plan(zone_cfg, DT, mode="fast",
+                                          max_stages=16)
+        # float64 parity: the sharded rollout against the unsharded one
+        p64, s64 = R.make_params(zone_cfg, dtype=f64, device=dev), \
+            zone_state(f64)
+        ref, _ = R.rollout(p64, s64, zone_bc, DT, m_rk4, ZONE_PARITY_STEPS,
+                           record=False)
+        for shards in (1, 4):
+            tag = f"ZONE-256-{shards}"
+            print(f"  {tag} on {card}")
+            mesh = PAR.make_zone_mesh(devices=[dev] * shards)
+            roll = PAR.zone_sharded_rollout(mesh, ZONE_ZONES, DT, m_rk4,
+                                            ZONE_PARITY_STEPS)
+            reset_kernel_counts()
+            got = PAR.gather_zones(roll(p64, s64, zone_bc))
+            torch.cuda.synchronize()
+            errs = {f: float((getattr(got, f) - getattr(ref, f)).abs().max())
+                    for f in ("pH", "chlorine", "temperature")}
+            check(errs["pH"] <= 1e-10 and errs["chlorine"] <= 1e-10
+                  and errs["temperature"] <= 1e-8
+                  and not any(kernel_counts().values()),
+                  f"{tag}: {ZONE_PARITY_STEPS} RK4 steps x {m_rk4} substeps "
+                  f"of the {ZONE_ZONES}-zone column over {shards} shard(s) "
+                  f"in float64 against the unsharded rollout on the card: "
+                  f"pH {errs['pH']:.2e}, Cl {errs['chlorine']:.2e} "
+                  f"(<= 1e-10), T {errs['temperature']:.2e} (<= 1e-8); no "
+                  "B1-B4 launch")
+            # float32 RKC-fast, timed over a ZONE_WINDOW_S window
+            p32 = R.make_params(zone_cfg, dtype=f32, device=dev)
+            step = PAR.zone_sharded_step(mesh, ZONE_ZONES, DT, m_rkc,
+                                         stages=s_rkc)
+            st = PAR.shard_state_zones(zone_state(f32), mesh)
+
+            def run(x, n):
+                for _ in range(n):
+                    x = step(p32, x, zone_bc)
+                return x
+
+            prof = step_profile(lambda: run(st, 1))
+            warm_ms, st = timed(lambda: run(st, 2))
+            n_steps = int(max(5, ZONE_WINDOW_S / (warm_ms / 2e3)))
+            reset_kernel_counts()
+            ms, st = timed(lambda: run(st, n_steps))
+            counts = kernel_counts()
+            final = PAR.gather_zones(st)
+            step_ms = ms / n_steps
+            busy = prof["device_ms"]
+            idle = None if busy is None else 1.0 - busy / step_ms
+            finite = all(bool(torch.isfinite(getattr(final, f)).all())
+                         for f in ("pH", "chlorine", "temperature"))
+            out[tag] = dict(
+                shards=shards, zones=ZONE_ZONES,
+                parity_steps=ZONE_PARITY_STEPS, parity_substeps=m_rk4,
+                parity_max_abs_err=errs,
+                rkc=(m_rkc, s_rkc), n_steps=n_steps, ms_per_step=step_ms,
+                steps_per_s=1e3 / step_ms, launches_per_step=prof["launches"],
+                aten_ops_per_step=prof["aten_ops"], device_ms_per_step=busy,
+                device_idle_share=idle, kernel_launches=counts)
+            check(finite and not any(counts.values()),
+                  f"{tag} float32 RKC-fast {m_rkc}x{s_rkc}, {n_steps} steps "
+                  f"in a {ZONE_WINDOW_S:.0f} s window: {1e3 / step_ms:.2f} "
+                  f"steps/s, {step_ms:.1f} ms a step; one step launches "
+                  f"{prof['launches']} CUDA kernels ({prof['aten_ops']} aten "
+                  f"ops), {fmt(busy, '.2f')} ms of device time (idle share "
+                  f"{fmt(idle, '.3f')}); fields finite, no B1-B4 launch")
+        # PZ-2x2: the 2-D mesh at __graft_entry__.py's 8-zone batch
+        print(f"  PZ-2x2 on {card}")
+        cfg8 = R.ReactorConfiguration(volume=1000, height=2.0,
+                                      diameter=0.798, n_zones=8)
+        p8, s8 = make_monte_carlo_batch(cfg8, 4, seed=1, dtype=f64,
+                                        device=dev)
+        mesh2 = PAR.make_plant_zone_mesh(2, 2, devices=[dev] * 4)
+        fn2 = PAR.plant_zone_sharded_step(mesh2, 8, DT, 4, params_example=p8)
+        rows = fn2(PAR.shard_batch_zones(p8, mesh2),
+                   PAR.shard_batch_zones(s8, mesh2), zone_bc)
+        got = PAR.gather_zones(rows)
+        want = R.step(p8, s8, zone_bc, dt=DT, substeps=4)
+        err = max(float((getattr(got, f) - getattr(want, f)).abs().max())
+                  for f in ("pH", "chlorine", "temperature"))
+        out["PZ-2x2"] = dict(max_abs_err=err, shape=list(got.pH.shape))
+        check(err <= 1e-10 and tuple(got.pH.shape) == (4, 8),
+              f"PZ-2x2: 4 plants x 8 zones over a 2 x 2 mesh of the card, "
+              f"float64, against the unsharded batched step: {err:.2e} "
+              "(<= 1e-10)")
+        report["zone_sharded"] = out
+        return True
+
+    @phase("path: plant_rollout_batched and dryrun (INTEG-65536, DRYRUN)")
+    def integ_and_dryrun():
+        out = {}
+        print(f"  INTEG-65536 on {card}")
+        cfg20i = R.ReactorConfiguration(volume=1000, height=2.0,
+                                        diameter=0.798, n_zones=20)
+        m, s = R.default_rkc_plan(cfg20i, DT, mode="fast")
+        ibc = R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.2,
+                                   inlet_chlorine=0.5, acid_flow_rate=0.1)
+        # the physics of both routes in float64 on 64 plants: the same
+        gen = torch.Generator(device=dev).manual_seed(1)
+        pp, pl = P.make_plant_batch(cfg20i, 64, seed=1, dtype=f64,
+                                    device=dev)
+        plain, _ = plant_rollout_batched(pp, pl, ibc, DT, m, 16,
+                                         record=False, stages=s,
+                                         generator=gen)
+        fused, _ = P.plant_rollout_auto(pp, pl, ibc, DT, m, 16,
+                                        record=False, stages=s, seed=1)
+        err = max(float((getattr(plain.reactor, f)
+                         - getattr(fused.reactor, f)).abs().max())
+                  for f in ("pH", "chlorine", "temperature"))
+        check(err <= 1e-9, f"INTEG: 64 x 20 x 16 steps in float64, the "
+              f"plain path's physics against B3's: {err:.2e} (<= 1e-9)")
+        out["physics_f64_max_abs_err"] = err
+        pp, pl = P.make_plant_batch(cfg20i, INTEG_PLANTS, seed=1, dtype=f32,
+                                    device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def plain_run(x, n):
+            return plant_rollout_batched(pp, x, ibc, DT, m, n, record=False,
+                                         stages=s, line_mode="tap",
+                                         rng_mode="packed",
+                                         generator=gen)[0]
+
+        prof = step_profile(lambda: plain_run(pl, 1))
+        warm_ms, x = timed(lambda: plain_run(pl, 2))
+        n_steps = int(max(4, INTEG_WINDOW_S / (warm_ms / 2e3)))
+        reset_kernel_counts()
+        ms, x = timed(lambda: plain_run(x, n_steps))
+        counts = kernel_counts()
+        rate = INTEG_PLANTS * n_steps / (ms / 1e3)
+        step_ms = ms / n_steps
+        busy = prof["device_ms"]
+        idle = None if busy is None else 1.0 - busy / step_ms
+        finite = bool(torch.isfinite(x.reactor.pH).all())
+        out["plain"] = dict(plants=INTEG_PLANTS, n_steps=n_steps,
+                            rkc=(m, s), ms_per_step=step_ms,
+                            plant_steps_per_s=rate,
+                            launches_per_step=prof["launches"],
+                            aten_ops_per_step=prof["aten_ops"],
+                            device_ms_per_step=busy, device_idle_share=idle,
+                            kernel_launches=counts)
+        check(finite and not any(counts.values()),
+              f"INTEG-65536 plain (plant_rollout_batched, tap lines, packed "
+              f"draws, RKC-fast {m}x{s}, record=False): {n_steps} steps, "
+              f"{rate:.4e} plant-steps/s, {step_ms:.2f} ms a step; one "
+              f"step launches {prof['launches']} CUDA kernels "
+              f"({prof['aten_ops']} aten ops), {fmt(busy, '.2f')} ms of "
+              f"device time (idle share {fmt(idle, '.3f')}); no B1-B4 "
+              "launch")
+        name = "plant_rollout_fused"
+
+        def fused_run(x):
+            return P.plant_rollout_auto(pp, x, ibc, DT, m, INTEG_FUSED_STEPS,
+                                        record=False, stages=s, seed=1)[0]
+
+        reset_kernel_counts()
+        fused_run(pl)
+        ms, y = timed(lambda: fused_run(pl), reps=3)
+        counts = kernel_counts()
+        main_launches[name] += counts[name]
+        frate = INTEG_PLANTS * INTEG_FUSED_STEPS / (ms / 1e3)
+        out["fused"] = dict(n_steps=INTEG_FUSED_STEPS, ms=ms,
+                            plant_steps_per_s=frate, kernel_launches=counts)
+        check(bool(torch.isfinite(y.reactor.pH).all())
+              and counts == {k: 4 * int(k == name) for k in counts},
+              f"INTEG-65536 through plant_rollout_auto (B3, "
+              f"{INTEG_FUSED_STEPS} steps, one launch a call): {ms:.2f} ms, "
+              f"{frate:.4e} plant-steps/s ({frate / rate:.0f}x the plain "
+              f"path); launches {counts}")
+        for n in (1, 4):
+            tag = f"DRYRUN-{n}"
+            print(f"  {tag} on {card}")
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            stages = port_entry.dryrun_multichip(
+                n, devices=[dev] * n, log=lambda msg: None)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernel_counts()
+            main_launches["rollout_fused"] += counts["rollout_fused"]
+            want = ["dp", "sp", "sp-particles", "fused", "fleet",
+                    "extensions", "serve", "dpxsp", "closed-loop", "ekf",
+                    "enkf", "surrogate"]
+            if n < 4:
+                want.remove("dpxsp")
+            out[tag] = dict(stages=stages, seconds=secs,
+                            kernel_launches=counts)
+            check(stages == want and counts == {
+                k: n * int(k == "rollout_fused") for k in counts},
+                f"{tag}: entry.dryrun_multichip({n}) on the card listed "
+                f"{n} time(s): stages {stages} passed in {secs:.1f} s; "
+                f"launches {counts} (one B1 launch a shard in 'fused')")
+        report["integ_dryrun"] = out
+        return True
+
+    zone_sharded()
+    integ_and_dryrun()
 
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
@@ -2534,11 +2808,11 @@ def main() -> int:
 
 
 # FULLCHEM-8192's timed window [s]: its step count is cut to fit it
-FULLCHEM_WINDOW_S = 10.0
+FULLCHEM_WINDOW_S = 6.0
 # PLANT-EXT-1's steps (cut from 600 to keep the script inside its time)
-PLANT_EXT_STEPS = 150
+PLANT_EXT_STEPS = 60
 # CL-4096, EKF-1024, ENKF-8192 and TRAIN-3's timed windows [s]
-CONTROL_WINDOW_S = 12.0
+CONTROL_WINDOW_S = 6.0
 # MPC-20's horizon_moves, steps_per_move and Adam iterations (cut from 6,
 # 10, 20: a 60 s step takes 121 RK4 substeps of plain PyTorch)
 MPC_CUT = (1, 10, 1)
@@ -2563,6 +2837,14 @@ FLEET_RATE_WINDOW_S = 3.0
 NET_WINDOW_S = 10.0
 NET_DOSE_STEPS = 200
 NET_RATE_WINDOW_S = 3.0
+# ZONE-256's zones, float64 parity steps and float32 timed window [s];
+# INTEG-65536's plants, its plain path's window [s] and B3's steps a call
+ZONE_ZONES = 256
+ZONE_PARITY_STEPS = 3
+ZONE_WINDOW_S = 10.0
+INTEG_PLANTS = 65536
+INTEG_WINDOW_S = 10.0
+INTEG_FUSED_STEPS = 512
 
 
 def fmt(x, spec):

@@ -492,16 +492,25 @@ def _aligned(axis_params, like):
 
 
 def derivatives(params: ReactorParams, pH, Cl, T,
-                boundary: BoundaryConditions, nitrogen=None, gas=None,
-                particles=None, disinfection=None, biofilm=None):
+                boundary: BoundaryConditions, inlet_mask=None,
+                outlet_mask=None, nitrogen=None, gas=None, particles=None,
+                disinfection=None, biofilm=None):
     """d(pH, Cl, T)/dt for ``[..., Z]`` zone tensors, followed by the
     tendencies of the extension species passed in: ``nitrogen`` (ammonia,
     nitrite, nitrate, chloramine), ``gas`` (oxygen, carbonate),
     ``particles`` (tss ``[..., C, Z]``, sludge ``[..., C]``),
     ``disinfection`` (pathogens ``[..., P, Z]``, ct, age, toc, thm) and
-    ``biofilm`` (bacteria, bdoc, biofilm). The inlet and dosing sources
-    enter at zone 0 and the outlet sink leaves at zone Z-1; the phase axis
-    acts through ``params.phase`` alone."""
+    ``biofilm`` (bacteria, bdoc, biofilm). The phase axis acts through
+    ``params.phase`` alone.
+
+    The inlet and dosing sources enter at zone 0 and the outlet sink (with
+    the free surface's gas exchange, evaporation and filtration) leaves at
+    zone Z-1, unless ``inlet_mask``/``outlet_mask`` (``[..., Z]`` one-hot
+    tensors) place them on other zones: the zone-sharded step
+    (``parallel/spatial.py``) passes them, because a shard sees a
+    halo-padded block of the column whose ends are ghosts. With a mask, the
+    sludge tendency is gated by the inlet mask's sum, so that summing it
+    over the shards gives the whole column's."""
     k = params.chem
 
     # In-domain clamp: every term is evaluated at in-bounds values, so an
@@ -546,9 +555,15 @@ def derivatives(params: ReactorParams, pH, Cl, T,
     # Dilution rate from the *boundary* inlet flow.
     q_per_v = (boundary.inlet_flow_rate / 60.0) / params.volume_L
 
-    def mix(x):
-        return transport_mod.apply_exchange(x, k_iface=k_iface,
-                                            q_per_v=q_per_v)
+    if outlet_mask is None:
+        def mix(x):
+            return transport_mod.apply_exchange(x, k_iface=k_iface,
+                                                q_per_v=q_per_v)
+    else:
+        def mix(x):  # the outlet sink on the masked zone
+            return transport_mod.apply_exchange(x, k_iface=k_iface,
+                                                q_per_v=0.0) \
+                - align_trailing(q_per_v, x) * x * outlet_mask
 
     # --- pH dynamics ---
     H = 10.0 ** (-pH)
@@ -564,20 +579,37 @@ def derivatives(params: ReactorParams, pH, Cl, T,
     dCl_dosing = (boundary.chlorine_flow_rate / 60.0) \
         * boundary.chlorine_concentration / params.zone_volume_L
 
-    dH_inlet = q_per_v * (H_inlet - H[..., 0])
-    dpH = _add_at_first(dpH, -(dH_dosing + dH_inlet) * inv_beta_ln10[..., 0])
+    if inlet_mask is None:
+        dH_inlet = q_per_v * (H_inlet - H[..., 0])
+        dpH = _add_at_first(dpH,
+                            -(dH_dosing + dH_inlet) * inv_beta_ln10[..., 0])
+    else:
+        qv = align_trailing(q_per_v, H)
+        dpH = dpH - align_trailing(dH_dosing, H) * inlet_mask \
+            * inv_beta_ln10 - qv * (align_trailing(H_inlet, H) - H) \
+            * inlet_mask * inv_beta_ln10
 
     # --- chlorine dynamics ---
     dCl = mix(Cl)
-    dCl = _add_at_first(
-        dCl, dCl_dosing + q_per_v * (boundary.inlet_chlorine - Cl[..., 0]))
+    if inlet_mask is None:
+        dCl = _add_at_first(
+            dCl, dCl_dosing + q_per_v * (boundary.inlet_chlorine - Cl[..., 0]))
+    else:
+        dCl = dCl + align_trailing(dCl_dosing, Cl) * inlet_mask \
+            + align_trailing(q_per_v, Cl) \
+            * (align_trailing(boundary.inlet_chlorine, Cl) - Cl) * inlet_mask
     k_base = thermo.arrhenius_rate(T, k_ref=params.cl_k_ref, e_a=params.cl_ea)
     ph_factor = chem.pH_dependent_chlorine_decay_factor(pH, k.Ka_HOCl)
     dCl = dCl - k_base * ph_factor * Cl
 
     # --- temperature dynamics ---
     dT = mix(T)
-    dT = _add_at_first(dT, q_per_v * (boundary.inlet_temperature - T[..., 0]))
+    if inlet_mask is None:
+        dT = _add_at_first(dT,
+                           q_per_v * (boundary.inlet_temperature - T[..., 0]))
+    else:
+        dT = dT + align_trailing(q_per_v, T) \
+            * (align_trailing(boundary.inlet_temperature, T) - T) * inlet_mask
     # Heat loss uses the TOTAL tank volume in the denominator.
     v_m3 = params.volume_L / 1000.0
     heat_rate = boundary.heat_loss_coefficient * params.heat_area_m2 \
@@ -599,7 +631,8 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         evap_rate = q_evap * align_trailing(
             a_cross / (c.WATER_DENSITY_20C * c.WATER_CP
                        * (params.zone_volume_L / 1000.0)), T)  # [K/s]
-        sink = loss + evap_rate * (1.0 - phi) * _last_zone_mask(T)
+        surf = _last_zone_mask(T) if outlet_mask is None else outlet_mask
+        sink = loss + evap_rate * (1.0 - phi) * surf
         dT = (dT - sink) * (1.0 / phase_mod.heat_capacity_ratio(T, pp_ph))
     else:
         dT = dT - loss
@@ -610,8 +643,11 @@ def derivatives(params: ReactorParams, pH, Cl, T,
 
     # shared inlet/source helper for the extension species
     def species(x, inlet_conc, reaction):
-        return _add_at_first(mix(x) + reaction,
-                             q_per_v * (inlet_conc - x[..., 0]))
+        if inlet_mask is None:
+            return _add_at_first(mix(x) + reaction,
+                                 q_per_v * (inlet_conc - x[..., 0]))
+        return mix(x) + reaction + align_trailing(q_per_v, x) \
+            * (align_trailing(inlet_conc, x) - x) * inlet_mask
 
     # O2 limitation (gas) scales the nitrification rates and those rates
     # set the O2 demand: rates first, equations second.
@@ -652,9 +688,10 @@ def derivatives(params: ReactorParams, pH, Cl, T,
     if gas is not None:
         # Two-film surface transfer on the top zone; diffused aeration
         # (boundary.aeration_kla) acts on every zone.
+        surf = _last_zone_mask(T) if outlet_mask is None else outlet_mask
         kla_surf = gas_mod.kla_temperature(
             gp.kl_surface / align_trailing(params.zone_height, T),
-            T, gp.theta_kla) * _last_zone_mask(T)
+            T, gp.theta_kla) * surf
         if phi is not None:
             # an ice lid blocks the surface film (aeration below it works)
             kla_surf = kla_surf * (1.0 - phi)
@@ -683,8 +720,14 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         pp = params.particles
         tss, sludge = (nonneg(x) for x in particles)
 
-        dTSS = transport_mod.apply_exchange(
-            tss, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        if outlet_mask is None:
+            dTSS = transport_mod.apply_exchange(
+                tss, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        else:
+            dTSS = transport_mod.apply_exchange(
+                tss, k_iface=k_iface[..., None, :], q_per_v=0.0) \
+                - align_trailing(q_per_v, tss) * tss \
+                * outlet_mask[..., None, :]
         # inlet advection at zone 0, split by the source-water fractions
         # or taken class-resolved from inlet_tss_classes
         if boundary.inlet_tss_classes is None:
@@ -693,13 +736,19 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         else:
             tss_in = torch.as_tensor(boundary.inlet_tss_classes,
                                      dtype=tss.dtype, device=tss.device)
-        dTSS = _add_at_first(
-            dTSS, align_trailing(q_per_v, tss_in) * (tss_in - tss[..., 0]))
+        if inlet_mask is None:
+            dTSS = _add_at_first(
+                dTSS,
+                align_trailing(q_per_v, tss_in) * (tss_in - tss[..., 0]))
+        else:
+            dTSS = dTSS + align_trailing(q_per_v, tss) \
+                * (tss_in[..., None] - tss) * inlet_mask[..., None, :]
 
         # Stokes settling toward zone 0 at each zone's own viscosity
         w_rate = particles_mod.settling_rates_zonal(
             pp, T, params.zone_height)
-        dsettle, deposit = particles_mod.settle(tss, w_rate)
+        dsettle, deposit = particles_mod.settle(
+            tss, w_rate, top_mask=outlet_mask, bottom_mask=inlet_mask)
         dTSS = dTSS + dsettle
 
         # coagulation chain (mass-conserving across classes)
@@ -708,15 +757,25 @@ def derivatives(params: ReactorParams, pH, Cl, T,
 
         # recirculating filtration at the outlet zone
         q_filter = (boundary.filter_flow_rate / 60.0) / params.zone_volume_L
-        dTSS = _add_at_last(
-            dTSS, -align_trailing(q_filter, tss[..., -1])
-            * pp.filter_eff * tss[..., -1])
+        if outlet_mask is None:
+            dTSS = _add_at_last(
+                dTSS, -align_trailing(q_filter, tss[..., -1])
+                * pp.filter_eff * tss[..., -1])
+        else:
+            dTSS = dTSS - align_trailing(q_filter, tss) \
+                * pp.filter_eff[..., None] * tss * outlet_mask[..., None, :]
 
         # sludge inventory: deposit in, resuspension + blowdown out
         resusp = align_trailing(pp.k_resuspension, sludge) * sludge
         dSludge = deposit - resusp \
             - align_trailing(boundary.sludge_blowdown, sludge) * sludge
-        dTSS = _add_at_first(dTSS, resusp)
+        if inlet_mask is None:
+            dTSS = _add_at_first(dTSS, resusp)
+        else:
+            dTSS = dTSS + resusp[..., None] * inlet_mask[..., None, :]
+            # gated to the bottom-owning shard: the sum over the shards is
+            # the column's tendency
+            dSludge = dSludge * torch.sum(inlet_mask, dim=-1)[..., None]
         extra += (dTSS, dSludge)
 
     if disinfection is not None:
@@ -748,8 +807,14 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         # axis, Chick-Watson sink
         lam = disinfection_mod.chlorine_lethality(
             Cl, pH, T, align_trailing(k.Ka_HOCl, pH), dp)
-        dN = transport_mod.apply_exchange(
-            path, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        if outlet_mask is None:
+            dN = transport_mod.apply_exchange(
+                path, k_iface=k_iface[..., None, :], q_per_v=q_per_v)
+        else:
+            dN = transport_mod.apply_exchange(
+                path, k_iface=k_iface[..., None, :], q_per_v=0.0) \
+                - align_trailing(q_per_v, path) * path \
+                * outlet_mask[..., None, :]
         dN = dN - lam * path
         if boundary.inlet_pathogen_classes is None:
             n_in = boundary.inlet_pathogens + torch.zeros(
@@ -757,8 +822,12 @@ def derivatives(params: ReactorParams, pH, Cl, T,
         else:
             n_in = torch.as_tensor(boundary.inlet_pathogen_classes,
                                    dtype=path.dtype, device=path.device)
-        dN = _add_at_first(
-            dN, align_trailing(q_per_v, n_in) * (n_in - path[..., 0]))
+        if inlet_mask is None:
+            dN = _add_at_first(
+                dN, align_trailing(q_per_v, n_in) * (n_in - path[..., 0]))
+        else:
+            dN = dN + align_trailing(q_per_v, path) \
+                * (n_in[..., None] - path) * inlet_mask[..., None, :]
         extra += (dN, dCTcred, dAge, dTOC, dTHM)
 
     if biofilm is not None:
@@ -834,33 +903,45 @@ def _enforce_bounds(pH, Cl, T, phase=None):
     )
 
 
-def step(params: ReactorParams, state: ReactorState,
-         boundary: BoundaryConditions, dt: float, substeps: int,
-         stages: Optional[int] = None) -> ReactorState:
-    """Advance the reactor by ``dt`` seconds: ``substeps`` RK4 steps, or
-    s-stage RKC2 steps when ``stages`` is given, then the physical bounds,
-    then the two exact operator splits: the UV bank (disinfection) and
-    chloramination (nitrogen)."""
-    axes = [axis for axis in EXTENSION_STATE
-            if getattr(params, axis) is not None
-            and getattr(state, EXTENSION_STATE[axis][0]) is not None]
-    # species tuple: (pH, Cl, T) then each enabled axis's fields in the
-    # order of EXTENSION_STATE
+def species_layout(params: ReactorParams, state: ReactorState):
+    """``(y, spans)``: the step's species tuple, (pH, Cl, T) then the
+    fields of each enabled extension axis in the order of
+    ``EXTENSION_STATE``, and each axis's slice of it."""
     y = (state.pH, state.chlorine, state.temperature)
     spans = {}
-    for axis in axes:
-        names = EXTENSION_STATE[axis]
+    for axis, names in EXTENSION_STATE.items():
+        if getattr(params, axis) is None \
+                or getattr(state, names[0]) is None:
+            continue
         spans[axis] = slice(len(y), len(y) + len(names))
         y = y + tuple(getattr(state, name) for name in names)
+    return y, spans
 
-    def f(y):
-        return derivatives(params, y[0], y[1], y[2], boundary,
-                           **{axis: y[sl] for axis, sl in spans.items()})
 
-    if stages is None:
-        out = integrators.integrate_fixed(f, y, dt, substeps)
-    else:
-        out = integrators.integrate_rkc(f, y, dt, substeps, stages)
+def check_deriv_fn_axes(spans, capable: Dict[str, bool]) -> None:
+    """Refuse a custom derivative function that was not declared capable
+    of an enabled extension axis (``capable``: axis -> declared)."""
+    for axis in spans:
+        if not capable.get(axis, False):
+            fields_ = "/".join(EXTENSION_STATE[axis])
+            raise ValueError(
+                f"this custom deriv_fn was not declared {axis}-capable "
+                f"(pass deriv_fn_{axis}=True if it accepts and returns the "
+                f"{fields_} fields in the species order); the zone-sharded "
+                f"step (parallel/spatial.py) supports {axis} through its "
+                f"{axis}=True option")
+
+
+def finish_step(params: ReactorParams, state: ReactorState,
+                boundary: BoundaryConditions, out, spans, dt: float,
+                uv_mask=None) -> ReactorState:
+    """The end of ``step`` after the integrator: the physical bounds, the
+    extension species floored at zero, the two exact operator splits (the
+    UV bank on ``uv_mask``'s zone, by default zone Z-1, and
+    chloramination), the new clock and flow, and the derived fields.
+    ``out`` is the integrated species tuple laid out as ``spans`` says
+    (``species_layout``); the zone-sharded step applies this to each
+    shard."""
     pH, Cl, T = _enforce_bounds(*out[:3], phase=params.phase)
     ext = {name: nonneg(x)
            for axis, sl in spans.items()
@@ -878,7 +959,7 @@ def step(params: ReactorParams, state: ReactorState,
         e0 = align_trailing(boundary.uv_intensity, pH)
         e_avg = disinfection_mod.average_fluence(e0, a254, dpar)
         surv = disinfection_mod.uv_survival(e_avg, dt, dpar)  # [..., P, Z]
-        mask = _last_zone_mask(pH)
+        mask = _last_zone_mask(pH) if uv_mask is None else uv_mask
         ext["pathogens"] = ext["pathogens"] \
             * (1.0 + mask[..., None, :] * (surv - 1.0))
 
@@ -915,6 +996,44 @@ def step(params: ReactorParams, state: ReactorState,
         **ext,
     )
     return _update_derived(new_state)
+
+
+def step(params: ReactorParams, state: ReactorState,
+         boundary: BoundaryConditions, dt: float, substeps: int,
+         stages: Optional[int] = None, deriv_fn=None,
+         deriv_fn_nitrogen: bool = False, deriv_fn_gas: bool = False,
+         deriv_fn_particles: bool = False,
+         deriv_fn_disinfection: bool = False,
+         deriv_fn_biofilm: bool = False, uv_mask=None) -> ReactorState:
+    """Advance the reactor by ``dt`` seconds: ``substeps`` RK4 steps, or
+    s-stage RKC2 steps when ``stages`` is given, then ``finish_step``: the
+    physical bounds and the two exact operator splits, the UV bank
+    (disinfection) and chloramination (nitrogen).
+
+    ``deriv_fn`` replaces the derivative evaluation: a function of the
+    species tuple (``species_layout``) returning its tendencies. It must be
+    declared capable of every enabled extension axis
+    (``deriv_fn_<axis>=True``), or the step raises ``ValueError``.
+    ``uv_mask`` (``[..., Z]`` one-hot) puts the UV bank's split on another
+    zone than Z-1."""
+    y, spans = species_layout(params, state)
+    if deriv_fn is None:
+        def f(y):
+            return derivatives(params, y[0], y[1], y[2], boundary,
+                               **{axis: y[sl] for axis, sl in spans.items()})
+    else:
+        check_deriv_fn_axes(spans, dict(
+            nitrogen=deriv_fn_nitrogen, gas=deriv_fn_gas,
+            particles=deriv_fn_particles,
+            disinfection=deriv_fn_disinfection, biofilm=deriv_fn_biofilm))
+        f = deriv_fn
+
+    if stages is None:
+        out = integrators.integrate_fixed(f, y, dt, substeps)
+    else:
+        out = integrators.integrate_rkc(f, y, dt, substeps, stages)
+    return finish_step(params, state, boundary, out, spans, dt,
+                       uv_mask=uv_mask)
 
 
 def _record(s: ReactorState) -> dict:

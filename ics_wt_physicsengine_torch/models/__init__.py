@@ -19,6 +19,7 @@ from ics_wt_physicsengine_torch.models.plant import (  # noqa: F401
     make_plant_batch,
     plant_rollout,
     plant_rollout_auto,
+    plant_rollout_batched,
     plant_rollout_scheduled,
     plant_rollout_serve,
     plant_serve_chunk,

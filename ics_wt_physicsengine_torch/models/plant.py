@@ -642,6 +642,181 @@ def draw_packed_rand(generator, batch_shape, dtype, device):
     return rand
 
 
+# Sensors whose reads accept an externally resolved sample tap (reading
+# name, PlantParams/PlantState attribute)
+_LINE_SENSORS = (("pH_inlet", "ph_inlet"), ("pH_outlet", "ph_outlet"),
+                 ("temp_inlet", "temp_inlet"), ("temp_outlet", "temp_outlet"))
+
+
+def _static_line_taps(params: PlantParams, dt: float) -> Dict[str, int]:
+    """``{reading_name: tap_steps}`` for the line sensors whose delay is the
+    same for every plant of the batch, the condition of the fixed-dt tap
+    path; a sensor whose delays differ keeps the exact ring. The tap is
+    clamped to ``capacity - 1``: the oldest sample a full ring can reach,
+    so both schemes resolve the same sample."""
+    taps = {}
+    for rname, fname in _LINE_SENSORS:
+        base = getattr(params, fname).base
+        if base.line_capacity <= 0:
+            continue
+        delay = base.line_delay_s.detach().reshape(-1).cpu()
+        if delay.numel() > 1 and not bool(torch.all(delay == delay[0])):
+            continue
+        k = max(0, int(round(float(delay[0]) / dt)))
+        taps[rname] = min(k, base.line_capacity - 1)
+    return taps
+
+
+def _disable_lines(params: PlantParams, taps) -> PlantParams:
+    """``params`` with ``line_capacity=0`` on the tap-resolved sensors, so
+    their reads skip the carried ring (which passes through untouched)."""
+    out = {}
+    for rname, fname in _LINE_SENSORS:
+        if rname in taps:
+            sp = getattr(params, fname)
+            out[fname] = replace(sp, base=replace(sp.base, line_capacity=0))
+    return replace(params, **out)
+
+
+def _line_true_values(params: PlantParams, state: R.ReactorState, taps):
+    """The pre-line sample of each tap sensor, computed as its read would:
+    the Nernst-compensated pH (``ph.ph_read``) or the zone's temperature."""
+    out = {}
+    for rname, fname in _LINE_SENSORS:
+        if rname not in taps:
+            continue
+        sp = getattr(params, fname)
+        if fname.startswith("ph"):
+            out[rname] = SP.nernst_compensated_ph(
+                sp, _zone(state.pH, sp.zone_index),
+                _zone(state.temperature, sp.zone_index))
+        else:
+            out[rname] = _zone(state.temperature, sp.zone_index)
+    return out
+
+
+def _tap_update(bufs, taps, trues, j: int):
+    """Advance the fixed-dt delay buffers: write step ``j``'s sample at row
+    ``j mod (k+1)`` and read the sample of step ``max(j-k, 0)`` (the oldest
+    there is until the buffer spans the delay, as the exact ring's
+    nearest-timestamp rule resolves under a uniform dt)."""
+    delayed = {}
+    for name, buf in bufs.items():
+        k = taps[name]
+        buf[j % (k + 1)] = trues[name]
+        delayed[name] = buf[max(j - k, 0) % (k + 1)].clone()
+    return delayed
+
+
+def plant_rollout_batched(params: PlantParams, plant: PlantState,
+                          boundary: R.BoundaryConditions, dt: float,
+                          substeps: int, n_steps: int, record: bool = True,
+                          stages=None, line_mode: str = "auto",
+                          rng_mode: str = "packed", line_taps=None,
+                          schedule: R.BoundaryConditions = None,
+                          generator=None, rand=None):
+    """Loop the batched integrated step over ``n_steps``: the measured-value
+    trajectories of a whole Monte-Carlo ensemble (what the instruments
+    would report, not the true state). Plain PyTorch on the plants' device.
+
+    ``line_mode`` picks the sample line:
+    - ``"exact"``: the carried nearest-timestamp ring, step for step what
+      ``plant_step_batched`` does;
+    - ``"tap"``: fixed-dt circular taps resolved outside the sensor carries
+      (the fused plant kernel's scheme). The readings equal ``"exact"``'s
+      wherever every step is recorded; they differ at noise level: samples
+      are recorded while a sensor warms up or is power-faulted (the ring
+      skips those), the line starts from the rollout's first sample
+      (the carried ring is not read), and a delay halfway between steps
+      rounds to even. It needs a line delay that is the same for every
+      plant (``ValueError`` when no sensor has one);
+    - ``"auto"``: ``"tap"`` for each sensor it applies to, ``"exact"`` for
+      the rest.
+    ``line_taps={reading_name: tap_steps}`` sets the taps instead.
+
+    ``rng_mode`` picks the instruments' randomness: ``"packed"`` draws the
+    seven base instruments' noise in two generates a step
+    (``draw_packed_rand``), ``"per-sensor"`` lets each read draw its own
+    (``plant_step``). Both draw from ``generator`` (a ``torch.Generator``;
+    None: the device's default); ``rand``, a sequence of ``n_steps``
+    per-step ``{sensor: (normals, uniforms)}`` dicts, replaces the draws.
+
+    ``schedule``: a ``BoundaryConditions`` with ``[n_steps]`` fields
+    (scalars hold for every step) applied one row a step to every plant; it
+    replaces ``boundary``.
+
+    Returns ``(plant, readings)``: each sensor's ``[n_steps, ...batch]``
+    values, or None when ``record=False``."""
+    if line_mode not in ("auto", "tap", "exact"):
+        raise ValueError(f"unknown line_mode: {line_mode!r}")
+    if rng_mode not in ("packed", "per-sensor"):
+        raise ValueError(f"unknown rng_mode: {rng_mode!r}")
+    if rand is not None and len(rand) != n_steps:
+        raise ValueError(f"rand holds {len(rand)} steps of draws, not "
+                         f"n_steps={n_steps}")
+    if line_mode == "exact":
+        taps = {}
+    elif line_taps is not None:
+        valid = {r for r, _ in _LINE_SENSORS}
+        if not set(line_taps) <= valid:
+            raise ValueError(f"unknown line_taps names: "
+                             f"{sorted(set(line_taps) - valid)}")
+        taps = {r: int(k) for r, k in line_taps.items()}
+    else:
+        taps = _static_line_taps(params, dt)
+    if line_mode == "tap" and not taps:
+        raise ValueError("line_mode='tap' needs a line delay that is the "
+                         "same for every plant (none found)")
+
+    device = plant.reactor.pH.device
+    if schedule is not None:
+        columns, length = _normalize_schedule(schedule, device)
+        if length != n_steps:
+            raise ValueError(f"schedule fields of length {length} disagree "
+                             f"with n_steps={n_steps}")
+
+        def bc_at(j):
+            return _row(columns, j)
+    else:
+        def bc_at(j):
+            return boundary
+
+    batch_shape = tuple(plant.reactor.pH.shape[:-1])
+    dtype = plant.reactor.pH.dtype
+
+    def draws(j):
+        if rand is not None:
+            return rand[j]
+        if rng_mode == "packed":
+            return draw_packed_rand(generator, batch_shape, dtype, device)
+        return None
+
+    records = []
+    if not taps:
+        for j in range(n_steps):
+            plant, readings = plant_step_batched(
+                params, plant, bc_at(j), dt, substeps, stages=stages,
+                rand=draws(j), generator=generator)
+            if record:
+                records.append({k: v.value for k, v in readings.items()})
+    else:
+        params_nl = _disable_lines(params, taps)
+        bufs = {name: torch.zeros((k + 1,) + batch_shape, dtype=dtype,
+                                  device=device)
+                for name, k in taps.items()}
+        for j in range(n_steps):
+            state = R.step(params.reactor, plant.reactor, bc_at(j), dt=dt,
+                           substeps=substeps, stages=stages)
+            delayed = _tap_update(bufs, taps,
+                                  _line_true_values(params, state, taps), j)
+            plant, readings = _read_all(params_nl, state, plant,
+                                        rand=draws(j), delayed=delayed,
+                                        generator=generator)
+            if record:
+                records.append({k: v.value for k, v in readings.items()})
+    return plant, (_stack_values(records) if record and records else None)
+
+
 def _is_schedule(boundary) -> bool:
     return any(getattr(getattr(boundary, f.name), "ndim", 0) >= 1
                for f in fields(boundary))

@@ -17,10 +17,7 @@ from __future__ import annotations
 from dataclasses import fields
 
 from ics_wt_physicsengine_torch.parallel.mesh import (  # noqa: F401
-    PLANTS_AXIS, Mesh, _operand, shard_batch)
-
-# JAX's per-device stream offset (``seed + axis_index * 1_000_003``)
-DEVICE_SEED_STRIDE = 1_000_003
+    PLANTS_AXIS, Mesh, _operand, batch_size, shard_batch)
 
 
 def _is_schedule(boundary) -> bool:
@@ -67,10 +64,12 @@ def sharded_plant_rollout_fused(mesh: Mesh, params, *, dt: float,
 
     ``params`` is the batched ``PlantParams``; a configuration the kernel
     does not support (an extension axis) is refused here, before any
-    launch. Randomness: with ``rng="philox"`` the device at mesh position
-    k draws the Philox stream of ``seed + k * 1_000_003`` (independent
-    noise per device, as the JAX package seeds its shards); ``rng="bits"``
-    replicates the given words ``[n_steps, 76, n_shard]`` to every shard.
+    launch. Randomness: with ``rng="philox"`` every shard draws the Philox
+    stream of ``seed`` from its first plant's index in the whole batch
+    (B3's ``plant0``), so a shard's noise, and with it its result, equals
+    its lanes of the one-device call (the JAX package seeds device k with
+    ``seed + k * 1_000_003`` instead); ``rng="bits"`` replicates the given
+    words ``[n_steps, 76, n_shard]`` to every shard.
     ``boundary`` is constant or a ``[n_steps]`` schedule, replicated.
     Returns the sharded final plant and, per shard, the readings (each
     sensor's ``[n_steps // record_every, n_shard]``: the plant axis
@@ -87,14 +86,14 @@ def sharded_plant_rollout_fused(mesh: Mesh, params, *, dt: float,
         ps, pls = shard_batch(p, mesh), shard_batch(plant, mesh)
         bs = _operand(boundary, mesh)
         words = None if bits is None else _operand(bits, mesh)
-        outs = []
+        outs, plant0 = [], 0
         for k, (pk, plk, bk) in enumerate(zip(ps, pls, bs)):
-            dev_seed = seed if rng == "bits" else \
-                seed + k * DEVICE_SEED_STRIDE
             outs.append(FP.plant_rollout_fused(
                 pk, plk, bk, dt=dt, substeps=substeps, n_steps=n_steps,
                 stages=stages, record_every=record_every, rng=rng,
-                bits=None if words is None else words[k], seed=dev_seed))
+                bits=None if words is None else words[k], seed=seed,
+                plant0=plant0))
+            plant0 += batch_size(plk)
         return [o[0] for o in outs], [o[1] for o in outs]
 
     return fn

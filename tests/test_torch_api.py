@@ -473,20 +473,9 @@ WAITS = {
         "the port's solve_pH_kernel (no Pallas in the port)": {
             "solve_pH_pallas"},
     },
-    "models": {
-        "ROADMAP queue A item 5c (batched plant rollouts)": {
-            "plant_rollout_batched"},
-    },
     "utils": {
         "one array library in the port: no namespace dispatch": {
             "array_namespace"},
-    },
-    "parallel": {
-        "ROADMAP queue A item 9b (zone-sharded step)": {
-            "make_plant_zone_mesh", "make_zone_mesh",
-            "plant_zone_sharded_step", "shard_batch_zones",
-            "shard_state_zones", "zone_sharded_rollout",
-            "zone_sharded_step"},
     },
     "utils.backend_select": {
         "no CPU fallback in the port: the CPU only when the caller asks": {
@@ -513,7 +502,7 @@ PORTED = ("core", "core.thermodynamics", "core.chemistry", "core.transport",
           "modbus.client", "modbus.rtu", "modbus.native_slave", "opcua",
           "opcua.encoding", "opcua.messages", "opcua.server",
           "opcua.client", "__main__", "fleet", "parallel", "parallel.mesh",
-          "parallel.fused", "parallel.multihost")
+          "parallel.fused", "parallel.multihost", "parallel.spatial")
 PACKAGES = ("core", "sensors", "control", "models", "utils", "modbus",
             "opcua", "parallel")
 # modules whose whole public surface is one class or one function

@@ -591,7 +591,11 @@ def test_jax_client_against_the_port_fleet_dose_pause_resume(chunk):
         c2.write_float32(0, 0.0)
 
         c3.write_coil(2, False)                 # simulation_running
-        time.sleep(0.5)
+        # a chunk already running when the coil is cleared still publishes
+        # unit 3's clock: wait two of unit 1's chunks before reading it
+        t0 = t(c1)
+        _wait(lambda: t(c1) >= t0 + 2 * chunk * 30.0, time.time() + 60,
+              "the running chunk")
         frozen, t1 = t(c3), t(c1)
         _wait(lambda: t(c1) >= t1 + 600.0, time.time() + 60, "unit 1")
         assert t(c3) == frozen

@@ -259,8 +259,9 @@ def test_fleet_chunk_on_the_card_matches_plain_and_shards_exactly(cuda,
 def test_sharded_kernels_on_a_mesh_of_cards(cuda, cards):
     """``parallel.fused`` on a mesh of the first card, and of every visible
     card: one launch a card, each shard bit-equal to the single-device
-    wrapper on that shard on the first card (mesh position k draws the
-    Philox stream of seed + k * 1_000_003)."""
+    wrapper on that shard on the first card, and each instrumented shard
+    to its lanes of the single-device call (every shard draws seed's
+    Philox stream from its first plant, B3's plant0)."""
     from ics_wt_physicsengine_torch import parallel as PAR
 
     mesh = PAR.make_mesh(1 if cards == "one" else None)
@@ -279,6 +280,8 @@ def test_sharded_kernels_on_a_mesh_of_cards(cuda, cards):
         mesh, pp, dt=1.0, substeps=3, n_steps=40, record_every=10,
         seed=4)(pp, pl, K.BC)
     assert FP.LAUNCHES["plant_rollout_fused"] == mesh.size
+    whole, rw = FP.plant_rollout_fused(pp, pl, K.BC, dt=1.0, substeps=3,
+                                       n_steps=40, record_every=10, seed=4)
     for k, dev in enumerate(mesh.devices):
         lanes = slice(16 * k, 16 * (k + 1))
         assert got[k].pH.device == dev
@@ -288,9 +291,8 @@ def test_sharded_kernels_on_a_mesh_of_cards(cuda, cards):
                             ref)["max_abs_err"] == 0.0
         d = K.plant_diff(
             PAR.gather_batch([(plants[k], readings[k])], cuda),
-            FP.plant_rollout_fused(K._lanes(pp, lanes), K._lanes(pl, lanes),
-                                   K.BC, dt=1.0, substeps=3, n_steps=40,
-                                   record_every=10, seed=4 + k * 1_000_003))
+            (K._lanes(whole, lanes),
+             {name: v[:, lanes] for name, v in rw.items()}))
         assert d["max_abs_err"] == 0.0 and d["nan_equal"] \
             and d["ints_equal"], (k, d)
 
@@ -636,3 +638,64 @@ def test_checkpoints_from_the_card_reload_bit_equal(cuda, tmp_path):
     assert np.isfinite(got[0]).all()
     np.testing.assert_array_equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+def _zone_column(n_zones, dtype, device):
+    """examples/zone_sharded_highres.py's plant at ``n_zones``: a warm
+    inflow over a cold tank, stratification on."""
+    cfg = R.ReactorConfiguration(volume=2000.0, height=4.0,
+                                 diameter=2 * np.sqrt(2.0 / (np.pi * 4.0)),
+                                 n_zones=n_zones, flow_rate=8.0,
+                                 initial_pH=7.3, initial_chlorine=1.5,
+                                 temperature=18.0)
+    state = R.make_initial_state(cfg, dtype=dtype, device=device)
+    state = R._update_derived(dataclasses.replace(
+        state, temperature=state.temperature + torch.linspace(
+            6.0, 0.0, n_zones, dtype=dtype, device=device)))
+    bc = R.BoundaryConditions(inlet_flow_rate=8.0, inlet_pH=7.6,
+                              inlet_chlorine=0.8, inlet_temperature=24.0,
+                              ambient_temperature=8.0,
+                              heat_loss_coefficient=120.0)
+    return cfg, R.make_params(cfg, dtype=dtype, device=device), state, bc
+
+
+def test_zone_sharded_column_on_the_card_matches_the_unsharded(cuda):
+    """ZONE-256-4 at small depth: the 256-zone column over the card listed
+    four times (64-zone shards, halos every stage), float64, one RK4 step
+    against the unsharded step on the card; no kernel launch."""
+    from ics_wt_physicsengine_torch import parallel as PAR
+
+    cfg, params, state, bc = _zone_column(256, torch.float64, cuda)
+    m = R.default_substeps(cfg, 1.0)
+    mesh = PAR.make_zone_mesh(devices=[cuda] * 4)
+    F.reset_launch_counts()
+    got = PAR.gather_zones(PAR.zone_sharded_step(mesh, 256, 1.0, m)(
+        params, state, bc))
+    want = R.step(params, state, bc, dt=1.0, substeps=m)
+    assert got.pH.device == state.pH.device
+    for field, atol in (("pH", 1e-10), ("chlorine", 1e-10),
+                        ("temperature", 1e-8)):
+        err = float((getattr(got, field) - getattr(want, field)).abs().max())
+        assert err <= atol, (field, err)
+    assert not any(F.LAUNCHES.values())
+
+
+def test_plant_zone_mesh_on_the_card_matches_the_unsharded(cuda):
+    """PZ-2x2: a 2 x 2 plants-by-zones mesh of the card at
+    ``__graft_entry__.py``'s 8-zone batch, float64, equal to the unsharded
+    batched step within 1e-10."""
+    from ics_wt_physicsengine_torch import parallel as PAR
+
+    cfg = R.ReactorConfiguration(volume=1000, height=2.0, diameter=0.798,
+                                 n_zones=8)
+    params, state = make_monte_carlo_batch(cfg, 4, seed=1,
+                                           dtype=torch.float64, device=cuda)
+    bc = R.BoundaryConditions(inlet_flow_rate=5.0, acid_flow_rate=0.1)
+    mesh = PAR.make_plant_zone_mesh(2, 2, devices=[cuda] * 4)
+    fn = PAR.plant_zone_sharded_step(mesh, 8, 1.0, 4, params_example=params)
+    got = PAR.gather_zones(fn(PAR.shard_batch_zones(params, mesh),
+                              PAR.shard_batch_zones(state, mesh), bc))
+    want = R.step(params, state, bc, dt=1.0, substeps=4)
+    for field in ("pH", "chlorine", "temperature"):
+        err = float((getattr(got, field) - getattr(want, field)).abs().max())
+        assert err <= 1e-10, (field, err)

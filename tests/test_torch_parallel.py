@@ -17,9 +17,10 @@
   ``tests/test_torch_fused_rollout.py``; the fused plant (B3 in interpret
   mode, float32, the same words) at ``tests/test_torch_fused_plant.py``'s
   ``PHYS`` 2e-5 and ``READ`` 1e-4.
-- ``rng="philox"`` draws ``seed + k * 1_000_003`` on the device at mesh
-  position k, as the JAX package seeds its shards; an extension axis is
-  refused before any launch.
+- ``rng="philox"``: every shard draws ``seed``'s stream from its first
+  plant's index (B3's ``plant0``), so each shard equals its lanes of the
+  one-device call bit for bit (the JAX package seeds device k with ``seed
+  + k * 1_000_003``); an extension axis is refused before any launch.
 - ``multihost``: two processes joined with gloo on the CPU (``torch.
   distributed``, a free localhost port) each step their slice of one global
   batch; every process's slice equals the single-process rollout bit for
@@ -284,11 +285,12 @@ def test_sharded_plant_philox_seeds_each_device_and_refuses_extensions():
     plants, readings = P.sharded_plant_rollout_fused(
         _mesh(), params, dt=1.0, substeps=2, n_steps=5, seed=9)(
         params, plant, bc)
+    whole, rw = TFP.plant_rollout_fused(params, plant, bc, dt=1.0,
+                                        substeps=2, n_steps=5, seed=9)
     for k in range(2):
-        ref = TFP.plant_rollout_fused(_shard(params, k, 2),
-                                      _shard(plant, k, 2), bc, dt=1.0,
-                                      substeps=2, n_steps=5,
-                                      seed=9 + k * 1_000_003)
+        lanes = slice(2 * k, 2 * k + 2)
+        ref = (_shard(whole, k, 2),
+               {name: v[:, lanes] for name, v in rw.items()})
         assert _bit_equal((plants[k], readings[k]), ref)
     xcfg = TR.ReactorConfiguration(n_zones=3, enable_gas=True)
     xp, _ = TPL.make_plant_batch(xcfg, 2, device="cpu")
