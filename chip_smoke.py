@@ -66,7 +66,8 @@ Phases:
     run_all_sensor_validations, the sensors demo (5-zone IntegratedCSTR.step
     plus seven sensor reads per tick for 180 ticks, then calibration,
     cleaning, reagent replacement), and the same loop on the 20-zone plant
-    for 600 ticks. This path is per-tick plain PyTorch and launches no
+    for 300 ticks (cut from 600 to make room for 5za-5zd). This path is
+    per-tick plain PyTorch and launches no
     hand-written kernel;
  5e. FULLCHEM-8192, the six extension axes (nitrogen, gas, particles,
     disinfection, biofilm, phase) on bench.py's bench_full_chemistry
@@ -188,8 +189,8 @@ Phases:
     times (64-zone shards, halos at every stage): 3 RK4 steps at
     default_substeps in float64 against the unsharded rollout on the card
     (pH and chlorine within 1e-10, temperature 1e-8), then float32
-    RKC-fast (default_rkc_plan, 16 stages at most) timed over a 10 s
-    window: steps/s, one step's launches, device time and idle share; then
+    RKC-fast (default_rkc_plan, 16 stages at most) timed over a 5 s
+    window (10 s before 5za-5zd): steps/s, one step's launches, device time and idle share; then
     PZ-2x2, a 2 x 2 plants-by-zones mesh of the card at __graft_entry__.py's
     8-zone batch, float64, against the unsharded batched step (1e-10). No
     B1-B4 launch: the zone-sharded step is plain PyTorch, as it is plain
@@ -197,21 +198,33 @@ Phases:
  5z. INTEG-65536, bench.py's integrated batch (65,536 x 20-zone
     instrumented plants, RKC-fast, record=False): the plain
     models.plant.plant_rollout_batched (tap lines, packed draws) over a
-    10 s window (plant-steps/s, one step's launches and idle share, no
+    5 s window (10 s before 5za-5zd; plant-steps/s, one step's launches and idle share, no
     B1-B4 launch) beside the port's route for that workload, B3 through
     plant_rollout_auto (512 steps a call, one launch a call); the two
     routes' physics within 1e-9 of each other on 64 plants in float64;
     then DRYRUN, entry.dryrun_multichip on the card and on the card listed
     four times: every stage passes, with one B1 launch a shard in "fused";
+ 5za-5zd. the repository bench and its tools, as a user runs them:
+    BENCH-QUICK, ics_wt_physicsengine_torch.bench at --quick (every row
+    of bench.py at its widths, its depth cut): every rate finite and > 0,
+    each kernel row launching its kernel once a call (B1: single plant,
+    batched; B2: scheduled; B3: integrated single plant, integrated
+    batch, Philox) and the plain rows none; PHILOX-STATS, the Philox row
+    at bench.py's full size (B3's readings against the plain path's
+    generator within bench.py's bounds); SOAK-1M, tools/torch_soak.py at
+    1M steps with its instrumented and nitrogen horizons cut (printed):
+    all seven checks, B1 once a call; SERVE-BENCH-1,
+    tools/torch_serve_bench.py on one plant over a 10 s window: ok (at
+    least 1000x real time, polls answered, a healthy pH reading);
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x and 5z. Direct kernel calls
-(phases 3, 3b and 3c, the kernel-only times, 5x's comparisons) and phase
-6 lie outside those windows; phases 5d-5q, 5s, 5v, 5w and 5y must launch
+the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z and 5za-5zc. Direct
+kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
+comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v, 5w and 5y must launch
 none. Every phase from 5t prints the card's name and power limit. Exits
 non-zero, with no result line, when there is no CUDA card, when the package
 is missing, or when any check fails. Times are CUDA-event times after a
@@ -1069,8 +1082,9 @@ def main() -> int:
                 latched = latched or r.status is SensorStatus.FAILED
             return True
 
-        for tag, n_zones, n_ticks, verbose in (("demo-5", 5, 180, True),
-                                               ("plant-20", 20, 600, False)):
+        for tag, n_zones, n_ticks, verbose in (
+                ("demo-5", 5, 180, True),
+                ("plant-20", 20, OBJECT_PLANT20_TICKS, False)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             reactor, suite = run_demo(dev, n_zones=n_zones, n_ticks=n_ticks,
@@ -2763,6 +2777,111 @@ def main() -> int:
     zone_sharded()
     integ_and_dryrun()
 
+    # ---- 5za-5zd. the repository bench and its tools ----------------------
+    from ics_wt_physicsengine_torch import bench as BENCH
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_serve_bench as TSB
+    import torch_soak as TSK
+
+    def launches_into_main():
+        counts = kernel_counts()
+        for name, n in counts.items():
+            main_launches[name] += n
+        return counts
+
+    @phase("bench and tools (BENCH-QUICK, PHILOX-STATS, SOAK-1M, "
+           "SERVE-BENCH-1)")
+    def bench_and_tools():
+        print(f"  on {card}")
+        out = {}
+        quiet = lambda msg: None  # noqa: E731
+        # BENCH-QUICK: every row of bench.py at its widths, depth cut
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        result = BENCH.bench(BENCH.BenchRun(dev, quick=True, log=quiet))
+        secs = time.perf_counter() - t0
+        counts = launches_into_main()
+        extra = result["extra"]
+        rates = {"single_plant_steps_per_sec": result["value"],
+                 **{k: extra[k] for k in BENCH.RATES[1:]}}
+        rows = extra["rows"]
+        out["BENCH-QUICK"] = dict(seconds=secs, rates=rates, rows=rows,
+                                  kernel_launches=counts)
+        check(result["ok"] and all(math.isfinite(r) and r > 0
+                                   for r in rates.values()),
+              f"BENCH-QUICK: python -m ics_wt_physicsengine_torch.bench "
+              f"--quick, {len(rows)} rows in {secs:.1f} s, every one of "
+              f"{len(rates)} rates finite and > 0 (headline "
+              f"{result['value']:.4e} steps/s at "
+              f"{BENCH.QUICK['bench_single_plant']['n_steps']} steps)")
+        for row, r in rows.items():
+            want = BENCH.KERNEL_ROWS.get(row)
+            check(r["launches"] == r["calls"] and set(r["calls"]) == (
+                {want} if want else set()),
+                f"BENCH-QUICK {row}: launches {r['launches']} for kernel "
+                f"calls {r['calls']} (one {want or 'no kernel'} a call)")
+        # PHILOX-STATS: bench.py's production-PRNG check at its full size
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        stats = BENCH.bench_philox_stats(run=BENCH.BenchRun(dev, log=quiet))
+        secs = time.perf_counter() - t0
+        counts = launches_into_main()
+        out["PHILOX-STATS"] = dict(seconds=secs, **stats,
+                                   kernel_launches=counts)
+        check(stats["philox_prng_ok"] and counts == {
+            k: 64 * int(k == "plant_rollout_fused") for k in counts},
+            f"PHILOX-STATS: {stats['philox_prng_reads']} B3 Philox "
+            f"pH_inlet readings (64 launches of 128 fresh plants x 1024 "
+            f"steps) against plant_rollout_batched's generator: mean delta "
+            f"{stats['philox_prng_value_mean_delta_vs_oracle']:.2e} pH "
+            f"(< 0.01), std {stats['philox_prng_value_std']:.4f} / "
+            f"{stats['oracle_value_std']:.4f} (within 20%), NaN share "
+            f"{stats['philox_prng_nan_fault_rate']:.4f} / "
+            f"{stats['oracle_nan_fault_rate']:.4f} (within 0.03); "
+            f"{secs:.1f} s")
+        # SOAK-1M: tools/torch_soak.py at soak.py's 1M steps (the drift
+        # check needs the tank settled after its first segment), its
+        # instrumented and nitrogen phases cut (printed)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        soak = TSK.soak(SOAK_STEPS, dev, plant_steps=SOAK_PLANT_STEPS,
+                        nitrogen_steps=SOAK_NITROGEN_STEPS, log=quiet)
+        secs = time.perf_counter() - t0
+        counts = launches_into_main()
+        checks = {k: soak[k] for k in (
+            "drift_within_bounds", "trajectories_finite",
+            "resume_bitexact_physics", "resume_bitexact_instrumented",
+            "nitrogen_finite", "nitrogen_species_bounded",
+            "resume_bitexact_nitrogen")}
+        out["SOAK-1M"] = dict(seconds=secs, **soak, kernel_launches=counts)
+        print(f"  SOAK-1M: cuts {soak['reduced']}")
+        check(soak["ok"] and counts == {
+            k: soak["b1_calls"] * int(k == "rollout_fused") for k in counts},
+            f"SOAK-1M: {SOAK_STEPS} steps through B1 at "
+            f"{soak['soak_steps_per_sec']:.4e} steps/s, chlorine drift "
+            f"{soak['chlorine_drift_pct_over_soak']:.4f}% over the soak; "
+            f"checks {checks}; {soak['b1_calls']} B1 calls, launches "
+            f"{counts}; {secs:.1f} s")
+        # SERVE-BENCH-1: tools/torch_serve_bench.py, one plant, a live
+        # client; the server is a child process (its launches are its own)
+        t0 = time.perf_counter()
+        served = TSB.serve_bench(TSB.parse_args(
+            ["--window", str(SERVE_BENCH_WINDOW_S)]))
+        secs = time.perf_counter() - t0
+        out["SERVE-BENCH-1"] = dict(seconds=secs, **served)
+        check(served["ok"],
+              f"SERVE-BENCH-1: python -m ics_wt_physicsengine_torch "
+              f"--fused-sensors --serve-chunk 1024 --rtf 0 on the card, "
+              f"{served.get('served_rtf', 0.0):.4e} simulated s per wall s "
+              f"(>= 1000), {served.get('client_polls')} polls, "
+              f"{served.get('live_ph_samples_ok')} healthy pH readings "
+              f"({served.get('reason', 'ok')[:200]}); {secs:.1f} s")
+        report["bench_and_tools"] = out
+        return True
+
+    bench_and_tools()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -2807,6 +2926,9 @@ def main() -> int:
     return finish(kernels, card)
 
 
+# plant-20's ticks in the object-API phase (cut from 600 to keep the
+# script near half its time limit)
+OBJECT_PLANT20_TICKS = 300
 # FULLCHEM-8192's timed window [s]: its step count is cut to fit it
 FULLCHEM_WINDOW_S = 6.0
 # PLANT-EXT-1's steps (cut from 600 to keep the script inside its time)
@@ -2841,10 +2963,17 @@ NET_RATE_WINDOW_S = 3.0
 # INTEG-65536's plants, its plain path's window [s] and B3's steps a call
 ZONE_ZONES = 256
 ZONE_PARITY_STEPS = 3
-ZONE_WINDOW_S = 10.0
+ZONE_WINDOW_S = 5.0
 INTEG_PLANTS = 65536
-INTEG_WINDOW_S = 10.0
+INTEG_WINDOW_S = 5.0
 INTEG_FUSED_STEPS = 512
+# SOAK-1M's steps (tools/soak.py's 1M: below ~400,000 its drift check sees
+# the tank's start-up transient) and its instrumented and nitrogen
+# horizons (cut from 2000 and 2048); SERVE-BENCH-1's window [s]
+SOAK_STEPS = 1_000_000
+SOAK_PLANT_STEPS = 40
+SOAK_NITROGEN_STEPS = 32
+SERVE_BENCH_WINDOW_S = 10.0
 
 
 def fmt(x, spec):

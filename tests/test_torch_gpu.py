@@ -699,3 +699,54 @@ def test_plant_zone_mesh_on_the_card_matches_the_unsharded(cuda):
     for field in ("pH", "chlorine", "temperature"):
         err = float((getattr(got, field) - getattr(want, field)).abs().max())
         assert err <= 1e-10, (field, err)
+
+
+def _tools():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import torch_soak
+
+    return torch_soak
+
+
+def test_quick_bench_on_the_card(cuda, tmp_path):
+    """Every row of the port's bench at --quick: every rate > 0, and each
+    kernel row launches its kernel once a call and no other."""
+    from ics_wt_physicsengine_torch import bench as B
+
+    run = B.BenchRun(cuda, quick=True, log=lambda msg: None)
+    result = B.bench(run)
+    extra = result["extra"]
+    rates = [result["value"]] + [extra[k] for k in B.RATES[1:]]
+    assert all(np.isfinite(r) and r > 0 for r in rates)
+    assert result["ok"] and extra["device"]["platform"] == "gpu"
+    for row, r in extra["rows"].items():
+        want = B.KERNEL_ROWS.get(row)
+        assert r["launches"] == r["calls"], row
+        assert set(r["calls"]) == ({want} if want else set()), row
+
+
+def test_philox_stats_on_the_card(cuda):
+    """B3's Philox readings against the plain path's generator at bench.py's
+    full size: mean, spread and NaN share within bench.py's bounds."""
+    from ics_wt_physicsengine_torch import bench as B
+
+    stats = B.bench_philox_stats(device=cuda)
+    assert stats["philox_prng_reads"] == 64 * 16 * 128
+    assert stats["philox_prng_ok"], stats
+
+
+def test_soak_on_the_card(cuda):
+    """The soak at tools/soak.py's 1M steps (the drift check needs the tank
+    settled after the first 250,000-step segment), its instrumented and
+    nitrogen phases cut short: every check true, B1 once a call."""
+    torch_soak = _tools()
+    F.reset_launch_counts()
+    result = torch_soak.soak(1_000_000, cuda, plant_steps=40,
+                             nitrogen_steps=16, log=lambda msg: None)
+    checks = {k: v for k, v in result.items() if isinstance(v, bool)}
+    assert result["ok"], checks
+    assert F.LAUNCHES["rollout_fused"] == result["b1_calls"] == 9

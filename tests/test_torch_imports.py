@@ -60,6 +60,13 @@ def test_fleet_and_parallel_modules_are_scanned(module):
     assert ROOT / "ics_wt_physicsengine_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("path", [
+    "ics_wt_physicsengine_torch/bench.py", "tools/torch_soak.py",
+    "tools/torch_serve_bench.py"])
+def test_bench_and_tools_are_scanned(path):
+    assert ROOT / path in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):
