@@ -28,8 +28,11 @@ Phases:
     launch, the Philox counter from a step past 2^32, the fault-code
     record) bit-equal to the plain version, and serving chunks of 16 + 16
     and 8 + 8 + 12 + 12 + 12 steps equal to one chunk of 32 and of 52; the
-    kernel's Philox stream against the plain one, with its statistics; and
-    the main-path shapes 4096 x 20 and 1 x 20, timed;
+    kernel's Philox stream against the plain one, with its statistics; the
+    bench_plant row's six configurations (1 to 16384 plants, RK4 and
+    RKC-fast, its plants and forcing, Philox seed 1, one record as
+    plant_rollout_auto launches it at record=False) at a short depth, bit
+    for bit; and the main-path shapes 4096 x 20 and 1 x 20, timed;
  3c. kernel B4 (the Newton pH solve: a lane takes a new element as soon
     as its own is done) against its plain version on the card over
     kernel_checks.B4_CASES, bit for bit (1 to 300,000 waters, 2-D shapes,
@@ -216,13 +219,34 @@ Phases:
     all seven checks, B1 once a call; SERVE-BENCH-1,
     tools/torch_serve_bench.py on one plant over a 10 s window: ok (at
     least 1000x real time, polls answered, a healthy pH reading);
+ 5ze. the tools and examples, as a user runs them (the phase's cuts in
+    TOOLS_CUTS, printed): EX-MC-4096, examples_torch/monte_carlo_uq.py at
+    its defaults (4096 x 20 x 7200 RK4, one B1 launch), and with
+    --with-sensors --dosing-program (plain plant_rollout_batched, its hours
+    cut); EX-HIL-24H, examples_torch/dosing_program_hil.py (24 one-hour B3
+    segments, one launch each, maintenance between them); EX-ZONE-256,
+    examples_torch/zone_sharded_highres.py over four zone shards of the
+    card (RKC-fast, its steps cut); BENCH-PLANT, the bench's bench_plant row
+    (tools/bench_plant_tpu.py's six configurations, plain and through
+    plant_rollout_auto, B3 once a call) at its widths, each measurement's
+    steps cut to a short call; RTF-SWEEP, tools/torch_rtf_sweep.py at 10x
+    and unpaced; FLEET-SCALE, tools/torch_fleet_scale.py at 4, 16, 64 and
+    254 units; LOAD-MODBUS-8 and LOAD-OPCUA-8 (tools/torch_load_modbus.py
+    and torch_load_opcua.py, 8 clients each) and WEB-HMI
+    (tools/torch_web_hmi.py: a live plant, a clamped command, /metrics)
+    against python -m ics_wt_physicsengine_torch on the card in a process
+    of its own, with nothing else starting beside them; then, side by side
+    in processes of their own, MULTIHOST-1 (tools/torch_multihost_demo.py
+    --nprocs 1: NCCL, a world of one card) and EX-SERVED (the five served
+    examples, each spawning the orchestrator on the card, exit code 0 and
+    its marker);
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
 launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z and 5za-5zc. Direct
+the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct
 kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
 comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v, 5w and 5y must launch
 none. Every phase from 5t prints the card's name and power limit. Exits
@@ -317,6 +341,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from ics_wt_physicsengine_torch import bench as BENCH
     from ics_wt_physicsengine_torch import entry as port_entry
     from ics_wt_physicsengine_torch.core import chemistry as chem
     from ics_wt_physicsengine_torch.core import reactor as R
@@ -537,6 +562,27 @@ def main() -> int:
               "B3 chained plain -> kernel -> plain == plain x3 (8x5, 3x20 "
               f"steps, per-plant delays): max abs diff {d['max_abs_err']:.3e}"
               f" <= {K.TOL[f32]:.0e}; NaN positions equal: {d['nan_equal']}")
+        # the bench_plant row's six configurations at their widths (its
+        # plants, forcing and plan), launched as plant_rollout_auto
+        # launches B3 at record=False: one record, Philox seed 1
+        n = BENCH_PLANT_CHECK_STEPS
+        for tag, n_plants, _, rkc in BENCH.PLANT_CONFIGS:
+            config, params, plant, bc = BENCH.plant_bench_inputs(
+                n_plants, device=dev)
+            m, s = BENCH.plant_bench_plan(config, rkc)
+            got, d = K.b3_vs_plain_on(params, plant, bc, substeps=m,
+                                      stages=s, n_steps=n, record_every=n,
+                                      seed=1)
+            rows.append(dict(case=f"bench_plant {tag}", **d))
+            check(held(d, 0.0)
+                  and bool(torch.isfinite(got[0].reactor.pH).all()),
+                  f"B3 bench_plant {tag} ({n_plants}x20, "
+                  f"{'RKC-fast' if rkc else 'RK4'} {m}x{s or 4}) x{n} "
+                  f"Philox seed 1, record=False == plain version bit for "
+                  f"bit: max abs diff {d['max_abs_err']:.3e} over state, "
+                  f"carries, rings, the record; NaN positions equal: "
+                  f"{d['nan_equal']}; integer carries equal: "
+                  f"{d['ints_equal']}")
         for n_zones, n_plants, integrator in ((20, 1, "rk4"),
                                               (20, 64, "fast")):
             check(K.b3_constant_schedule_equals_constant(
@@ -2556,26 +2602,16 @@ def main() -> int:
     # ---- 5y-5z. the zone-sharded step, plant_rollout_batched, dryrun ------
     from ics_wt_physicsengine_torch.models.plant import plant_rollout_batched
 
+    from examples_torch import zone_sharded_highres as EX_ZONE
+
     f64 = torch.float64
-    zone_height, zone_volume = 4.0, 2000.0
-    zone_cfg = R.ReactorConfiguration(
-        volume=zone_volume, height=zone_height,
-        diameter=2 * math.sqrt((zone_volume / 1000) / (math.pi * zone_height)),
-        n_zones=ZONE_ZONES, flow_rate=8.0, initial_pH=7.3,
-        initial_chlorine=1.5, temperature=18.0)
-    zone_bc = R.BoundaryConditions(
-        inlet_flow_rate=8.0, inlet_pH=7.6, inlet_chlorine=0.8,
-        inlet_temperature=24.0, ambient_temperature=8.0,
-        heat_loss_coefficient=120.0)
+    # examples_torch/zone_sharded_highres.py's plant: a warm inflow over a
+    # cold tank (6 C down to 0 C over the column), stratification on
+    zone_cfg = EX_ZONE.column_config(ZONE_ZONES)
+    zone_bc = EX_ZONE.COLUMN_BC
 
     def zone_state(dtype):
-        """examples/zone_sharded_highres.py's state: a warm inflow over a
-        cold tank (6 C down to 0 C over the column), stratification on."""
-        s0 = R.make_initial_state(zone_cfg, dtype=dtype, device=dev)
-        s0 = dataclasses.replace(s0, temperature=s0.temperature
-                                 + torch.linspace(6.0, 0.0, ZONE_ZONES,
-                                                  dtype=dtype, device=dev))
-        return R._update_derived(s0)
+        return EX_ZONE.column_state(zone_cfg, dtype, dev)
 
     @phase("path: zone-sharded step (ZONE-256, PZ-2x2)")
     def zone_sharded():
@@ -2778,8 +2814,6 @@ def main() -> int:
     integ_and_dryrun()
 
     # ---- 5za-5zd. the repository bench and its tools ----------------------
-    from ics_wt_physicsengine_torch import bench as BENCH
-
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import torch_serve_bench as TSB
     import torch_soak as TSK
@@ -2882,6 +2916,329 @@ def main() -> int:
 
     bench_and_tools()
 
+    # ---- 5ze. the tools and examples, as a user runs them -----------------
+    import contextlib
+    import io
+
+    import torch_fleet_scale as TFS
+    import torch_load_modbus as TLM
+    import torch_load_opcua as TLO
+    import torch_rtf_sweep as TRS
+    import torch_web_hmi as HMI
+    from examples_torch import dosing_program_hil as EX_HIL
+    from examples_torch import monte_carlo_uq as EX_MC
+
+    def quietly(fn, *args):
+        """``fn(*args)`` with its standard output kept, not printed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args)
+        return result, buf.getvalue()
+
+    def script(argv, name, log_dir, env=None):
+        """``python argv...`` from the repository root (``env`` added to
+        this process's environment), its output in ``log_dir/name.log``;
+        returns the process and its log's path."""
+        log = os.path.join(log_dir, name + ".log")
+        with open(log, "wb") as f:
+            proc = subprocess.Popen([sys.executable] + argv, cwd=ROOT,
+                                    stdout=f, stderr=subprocess.STDOUT,
+                                    env=dict(os.environ, **(env or {})))
+        return proc, log
+
+    def finish_scripts(procs, timeout_s):
+        """Wait for every ``(proc, log)`` until the deadline, kill the
+        rest; returns ``[(exit code or None, log text)]``."""
+        end = time.monotonic() + timeout_s
+        results = []
+        for proc, log in procs:
+            try:
+                rc = proc.wait(timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+                rc = None
+            with open(log, errors="replace") as f:
+                results.append((rc, f.read()))
+        return results
+
+    @phase("tools and examples (EX-MC-4096, EX-HIL-24H, EX-ZONE-256, "
+           "BENCH-PLANT, RTF-SWEEP, FLEET-SCALE, LOAD-*, WEB-HMI, "
+           "MULTIHOST-1, EX-SERVED)")
+    def tools_and_examples():
+        print(f"  on {card}; cuts: {TOOLS_CUTS}")
+        out = {"cuts": TOOLS_CUTS}
+        log_dir = tempfile.mkdtemp(prefix="wt_tools_")
+        procs = []
+        # the plant the load tools and the HMI attach to: the orchestrator
+        # on the card at real time (one tick a second), started now so that
+        # its start overlaps the examples below
+        mb_port, ua_port = free_port(), free_port()
+        plant = script(["-m", "ics_wt_physicsengine_torch", "--device",
+                        "cuda", "--port", str(mb_port), "--host",
+                        "127.0.0.1", "--opcua", str(ua_port), "--zones",
+                        "20", "--seed", "3"], "orchestrator", log_dir)
+        try:
+            # EX-MC-4096: the example at its defaults, B1 once
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            mc, _ = quietly(EX_MC.main, [])
+            secs = time.perf_counter() - t0
+            counts = launches_into_main()
+            q = mc["outlet_chlorine_mg_L"]
+            out["EX-MC-4096"] = dict(seconds=secs, **mc,
+                                     kernel_launches=counts)
+            check(mc["plants"] == 4096 and all(
+                math.isfinite(v) for v in q.values())
+                and counts == {k: int(k == "rollout_fused") for k in counts},
+                f"EX-MC-4096: examples_torch/monte_carlo_uq.py, 4096 x 20 x "
+                f"7200 steps RK4 through B1: outlet Cl p05/median/p95 "
+                f"{q['p05']}/{q['median']}/{q['p95']} mg/L, "
+                f"{mc['plant_steps_per_s_including_compile']:.4e} "
+                f"plant-steps/s with set-up and the first launch; launches "
+                f"{counts}; {secs:.1f} s")
+            # the instrumented ensemble under the dosing program (plain)
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            mcs, _ = quietly(EX_MC.main, [
+                "--with-sensors", "--dosing-program", "--hours",
+                str(TOOLS_CUTS["EX-MC-4096 --with-sensors"])])
+            secs = time.perf_counter() - t0
+            counts = kernel_counts()
+            q = mcs["measured_outlet_chlorine_mg_L"]
+            out["EX-MC-4096-SENSORS"] = dict(seconds=secs, **mcs,
+                                             kernel_launches=counts)
+            check(all(math.isfinite(v) for v in q.values())
+                  and mcs["sensor_dropout_fraction"] < 0.5
+                  and not any(counts.values()),
+                  f"EX-MC-4096 --with-sensors --dosing-program --hours "
+                  f"{mcs['simulated_hours']}: plant_rollout_batched (plain), "
+                  f"measured outlet Cl p05/median/p95 {q['p05']}/"
+                  f"{q['median']}/{q['p95']} mg/L, dropout "
+                  f"{mcs['sensor_dropout_fraction']}; no B1-B4 launch; "
+                  f"{secs:.1f} s")
+            # EX-HIL-24H: 24 hourly B3 segments with maintenance
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            hil, _ = quietly(EX_HIL.main, [])
+            secs = time.perf_counter() - t0
+            counts = launches_into_main()
+            series = {k: hil["series"][k] for k in EX_HIL.NAMES}
+            finite = {k: float(np.isfinite(v).mean())
+                      for k, v in series.items()}
+            steady = hil["n_steps"] - hil["seg_steps"]
+            rate = (steady / hil["steady_seconds"] if hil["steady_seconds"]
+                    else float("nan"))
+            out["EX-HIL-24H"] = dict(
+                seconds=secs, segments=hil["n_segments"],
+                records=len(series["pH_outlet"]), finite_share=finite,
+                steps_per_s_after_the_first_segment=rate,
+                kernel_launches=counts)
+            check(hil["n_segments"] == 24
+                  and len(series["pH_outlet"]) == 24 * 60
+                  and min(finite.values()) >= 0.5
+                  and counts == {k: 24 * int(k == "plant_rollout_fused")
+                                 for k in counts},
+                  f"EX-HIL-24H: examples_torch/dosing_program_hil.py, 24 h "
+                  f"in 24 one-hour B3 segments recorded every minute: "
+                  f"{rate:.4e} steps/s after the first; finite share "
+                  f"{ {k: round(v, 3) for k, v in finite.items()} }; "
+                  f"launches {counts}; {secs:.1f} s")
+            # EX-ZONE-256: the example, four 64-zone shards of the card
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            zone, _ = quietly(EX_ZONE.main, TOOLS_CUTS["EX-ZONE-256 args"]
+                              + ["--shards", "4"])
+            secs = time.perf_counter() - t0
+            counts = kernel_counts()
+            out["EX-ZONE-256"] = dict(wall_s=secs, **zone,
+                                      kernel_launches=counts)
+            check(zone["shards"] == 4 and zone["max_abs_ph_err"] <= 1e-4
+                  and not any(counts.values()),
+                  f"EX-ZONE-256: examples_torch/zone_sharded_highres.py "
+                  f"--shards 4, {zone['steps']} RKC-fast steps of the "
+                  f"256-zone column: {zone['steps_per_s']:.2f} steps/s, "
+                  f"float32 pH "
+                  f"within {zone['max_abs_ph_err']:.2e} of the unsharded "
+                  f"rollout (<= 1e-4); no B1-B4 launch; {secs:.1f} s")
+            # BENCH-PLANT: the bench's bench_plant row at its widths, each
+            # call's steps cut to a short call
+            reset_kernel_counts()
+            run = BENCH.BenchRun(dev, budget_s=TOOLS_CUTS[
+                "BENCH-PLANT call limit s"], call_limit_s=TOOLS_CUTS[
+                "BENCH-PLANT call limit s"], log=lambda msg: None)
+            t0 = time.perf_counter()
+            rates = BENCH.bench_plant(
+                n_steps=TOOLS_CUTS["BENCH-PLANT steps"], run=run)
+            secs = time.perf_counter() - t0
+            counts = launches_into_main()
+            out["BENCH-PLANT"] = dict(seconds=secs, rates=rates,
+                                      reduced=run.reduced, calls=run.calls,
+                                      kernel_launches=counts)
+            print("  BENCH-PLANT steps a measurement (cut from its own to "
+                  f"a {run.call_limit_s} s call): " + ", ".join(
+                      f"{r['row'].split('/')[1]} {r['value']}/{r['bench_py']}"
+                      for r in run.reduced if r["cut"] == "n_steps"))
+            check(len(rates) == 12 and all(
+                math.isfinite(r) and r > 0 for r in rates.values())
+                and counts == {k: run.calls.get(k, 0) for k in counts}
+                and run.calls.get("plant_rollout_fused", 0) > 0,
+                f"BENCH-PLANT: tools/bench_plant_tpu.py's six "
+                f"configurations, plain and B3 (plant_rollout_auto): "
+                + ", ".join(f"{k.replace('_plant_steps_per_sec', '')} "
+                            f"{v:.4e}" for k, v in rates.items())
+                + f" plant-steps/s; B3 calls {run.calls}, launches {counts}; "
+                f"{secs:.1f} s")
+            # RTF-SWEEP: the HIL stack paced at 10x, and unpaced (the
+            # sensors' drift warnings kept off the output)
+            orch_log = logging.getLogger(orchestrator.__name__)
+            level = orch_log.level
+            orch_log.setLevel(logging.CRITICAL)
+            t0 = time.perf_counter()
+            try:
+                sweep = TRS.sweep(TRS.parse_args(
+                    TOOLS_CUTS["RTF-SWEEP args"]), dev)
+            finally:
+                orch_log.setLevel(level)
+            secs = time.perf_counter() - t0
+            paced, free = sweep["sweep"]
+            out["RTF-SWEEP"] = dict(seconds=secs, **sweep)
+            check(paced["achieved_rtf"] >= 0.9 * paced["requested_rtf"]
+                  and free["achieved_rtf"] > paced["achieved_rtf"],
+                  f"RTF-SWEEP: tools/torch_rtf_sweep.py "
+                  f"{' '.join(TOOLS_CUTS['RTF-SWEEP args'])}: achieved "
+                  f"{paced['achieved_rtf']:.3f} at 10x, unpaced ceiling "
+                  f"{free['achieved_rtf']:.2f} steps/s (IntegratedCSTR, "
+                  f"seven sensor reads, the registers); {secs:.1f} s")
+            # FLEET-SCALE: the headless fleet tick against N
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                scale = TFS.fleet_scale(TFS.parse_args(
+                    TOOLS_CUTS["FLEET-SCALE args"]), dev)
+            secs = time.perf_counter() - t0
+            out["FLEET-SCALE"] = dict(seconds=secs, **scale)
+            check(all(t > 0 for t in scale["tick_ms"])
+                  and scale["max_realtime_units_dt1s"] > 0,
+                  f"FLEET-SCALE: tools/torch_fleet_scale.py at "
+                  f"{scale['fleet_sizes']} units: {scale['tick_ms']} ms a "
+                  f"tick; fitted max_realtime_units_dt1s "
+                  f"{scale['max_realtime_units_dt1s']}; {secs:.1f} s")
+
+            # LOAD-MODBUS-8, LOAD-OPCUA-8, WEB-HMI against the orchestrator,
+            # before anything else starts beside it
+            client = connect(mb_port, deadline_s=120.0)
+            check(client is not None, "the orchestrator on the card serves "
+                  f"Modbus on {mb_port}")
+            if client is not None:
+                client.close()
+                secs_each = str(TOOLS_CUTS["LOAD seconds"])
+                lm, _ = quietly(TLM.main, [
+                    "--clients", "8", "--seconds", secs_each,
+                    "--attach-port", str(mb_port)])
+                lo, _ = quietly(TLO.main, [
+                    "--clients", "8", "--seconds", secs_each,
+                    "--attach-port", str(ua_port)])
+                out["LOAD-MODBUS-8"], out["LOAD-OPCUA-8"] = lm, lo
+                for tag, r in (("LOAD-MODBUS-8", lm), ("LOAD-OPCUA-8", lo)):
+                    lat = r["latency_ms"] or {}
+                    check(r["clients_served"] == 8 and r["errors"] == 0
+                          and r["dt1s_budget_ok"],
+                          f"{tag}: tools/torch_load_{tag[5:-2].lower()}.py, 8 "
+                          f"clients for {secs_each} s against the "
+                          f"orchestrator on the card, nothing else "
+                          f"starting: {r['requests_per_s']} requests/s, "
+                          f"p50/p99 {lat.get('p50')}/{lat.get('p99')} ms, "
+                          f"{r['errors']} errors")
+                out["WEB-HMI"] = web_hmi(mb_port)
+            # MULTIHOST-1 and EX-SERVED, in processes of their own, side by
+            # side, one intra-op thread each: with torch's default threads
+            # the twelve processes (each served example probes the card in
+            # one more) oversubscribe the host's eight cores
+            t_side = time.perf_counter()
+            one = {"OMP_NUM_THREADS": "1"}
+            procs = [script([os.path.join("tools", "torch_multihost_demo.py"),
+                             "--nprocs", "1"], "multihost", log_dir, one)]
+            procs += [script([os.path.join("examples_torch", name)] + args,
+                             name, log_dir, one)
+                      for name, args, _ in SERVED_EXAMPLES]
+        finally:
+            plant[0].terminate()
+            finish_scripts([plant], 30)
+            # reaped whatever happened above
+            results = finish_scripts(procs, SERVED_TIMEOUT_S)
+        secs = time.perf_counter() - t_side
+        rc, text = results[0]
+        out["MULTIHOST-1"] = dict(rc=rc, tail=text[-1500:])
+        check(rc == 0 and "multihost demo: all ranks OK" in text
+              and "[rank 0] nccl" in text
+              and "on local shards: 0\n" in text
+              and "vs single-process = 0\n" in text,
+              "MULTIHOST-1: tools/torch_multihost_demo.py --nprocs 1 "
+              "(NCCL, a world of one card): the sharded rollout and the "
+              f"plant batch equal to one process (exit code {rc})")
+        served = {}
+        for (name, args, markers), (rc, text) in zip(SERVED_EXAMPLES,
+                                                      results[1:]):
+            ok = rc == 0 and all(m in text for m in markers)
+            served[name] = dict(rc=rc, ok=ok, tail=text[-1500:])
+            check(ok, f"EX-SERVED {name} {' '.join(args)}: exit code {rc}, "
+                  f"markers {markers} printed")
+        out["EX-SERVED"] = dict(seconds=secs, **served)
+        print(f"  MULTIHOST-1 and EX-SERVED side by side: {secs:.1f} s")
+        report["tools_and_examples"] = out
+        return True
+
+    def web_hmi(mb_port):
+        """The HMI against the orchestrator: the page, a live state (the
+        simulation clock past 0 and the true mid-zone pH, always written,
+        between 6 and 9), a clamped command (written back to 0 after),
+        /metrics."""
+        import urllib.request
+
+        server = HMI.serve("127.0.0.1", mb_port, "127.0.0.1", 0)
+        http = threading.Thread(target=server.serve_forever, daemon=True)
+        http.start()
+        base = f"http://127.0.0.1:{server.server_port}"
+        try:
+            page = urllib.request.urlopen(base + "/", timeout=10).read()
+            req = urllib.request.Request(
+                base + "/api/command", method="POST",
+                data=json.dumps({"register": "acid_flow_rate",
+                                 "value": 99.0}).encode(),
+                headers={"Content-Type": "application/json"})
+            resp = json.loads(urllib.request.urlopen(req, timeout=10).read())
+            end = time.monotonic() + 30.0
+            while True:
+                state = json.loads(urllib.request.urlopen(
+                    base + "/api/state", timeout=10).read())
+                if (state["inputs"]["simulation_time"] > 0
+                        or time.monotonic() > end):
+                    break
+                time.sleep(0.5)
+            metrics = urllib.request.urlopen(
+                base + "/metrics", timeout=10).read().decode()
+            server.hmi.write("acid_flow_rate", 0.0)
+        finally:
+            server.shutdown()
+            server.hmi.close()
+        inputs = state["inputs"]
+        ok = (b"Web HMI" in page and resp.get("applied") == 2.0
+              and inputs["simulation_time"] > 0
+              and 6.0 <= inputs["pH_middle"] <= 9.0
+              and state["commands"]["acid_flow_rate"] == 2.0
+              and state["coils"]["simulation_running"] is True
+              and 'wt_sim_command{register="acid_flow_rate"} 2.0' in metrics
+              and "wt_sim_modbus_diagnostic" in metrics)
+        check(ok, "WEB-HMI: tools/torch_web_hmi.py on the orchestrator on "
+              f"the card: simulation_time {inputs['simulation_time']:.1f} s "
+              f"(> 0), pH_middle {inputs['pH_middle']:.3f} (6-9), pH_inlet "
+              f"{inputs['pH_inlet']:.3f}, a command of 99 clamped to "
+              f"{resp.get('applied')}, /metrics "
+              "with the command, the coils and the FC 08 counters")
+        return dict(ok=ok, inputs=inputs, applied=resp.get("applied"))
+
+    tools_and_examples()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -2974,6 +3331,44 @@ SOAK_STEPS = 1_000_000
 SOAK_PLANT_STEPS = 40
 SOAK_NITROGEN_STEPS = 32
 SERVE_BENCH_WINDOW_S = 10.0
+# the steps of 3b's B3 checks at the bench_plant row's widths (its own
+# 64-2048 steps are cut: the plain version takes ~40 ms a step on an H100)
+BENCH_PLANT_CHECK_STEPS = 20
+# 5ze's cuts (printed with the phase), all to keep it inside 90 s on a
+# slow host (92 s on one with 3.0 s loads, 0.3 s calls and 60 sweep
+# steps): the instrumented Monte-Carlo ensemble's hours (plain
+# plant_rollout_batched is launch-bound: 0.05 h took 10.9 s on an H100,
+# 60 ms a step), the zone-sharded example's steps and integrator (RK4
+# takes 82 substeps a step at 256 zones), the one-call limit of the bench
+# row's measurements (each plain measurement's steps cut to fit it) and
+# its steps (the single plant's 2048 cut to 256: its two warm-up calls
+# of 1/64 of the steps run plain steps of ~40 ms), the RTF sweep's ladder
+# and steps (rtf 1 alone takes 120 s), the fleet ladder's ticks and the
+# load tools' seconds
+TOOLS_CUTS = {
+    "EX-MC-4096 --with-sensors": 0.025,
+    "EX-ZONE-256 args": ["--steps", "6", "--integrator", "rkc-fast"],
+    "BENCH-PLANT call limit s": 0.2,
+    "BENCH-PLANT steps": 256,
+    "RTF-SWEEP args": ["--rtfs", "10", "0", "--steps", "30"],
+    "FLEET-SCALE args": ["--ticks", "10", "--sizes", "4", "16", "64", "254"],
+    "LOAD seconds": 2.0,
+}
+# the served examples at tests/test_examples.py's iteration counts, each
+# spawning the orchestrator on the card, and the markers each must print
+SERVED_EXAMPLES = (
+    ("pid_controller.py", ["--spawn", "--iterations", "15", "--period",
+                           "0.1"], ["final: Cl_out="]),
+    ("fleet_farm.py", ["--units", "2", "--iterations", "20"],
+     ['"fleet_units": 2']),
+    ("relay_autotune.py", ["--switches", "4", "--verify-iterations", "20"],
+     ["ultimate_gain_Ku", "ziegler_nichols_PI"]),
+    ("opcua_scada.py", ["--spawn", "--publishes", "20", "--interval",
+                        "0.15"], ["subscribed:", "pushed data changes"]),
+    ("ekf_soft_sensor.py", ["--spawn", "--ticks", "8"],
+     ["soft sensor assimilated 8 ticks"]),
+)
+SERVED_TIMEOUT_S = 150.0
 
 
 def fmt(x, spec):

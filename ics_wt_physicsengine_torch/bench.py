@@ -31,8 +31,10 @@ with the row, what was cut and ``bench.py``'s value.
 Beside ``bench.py``'s keys the line carries ``*_kernel`` rates (the same
 ensembles through kernels B1 and B3, as a user of the port runs them on the
 card), ``philox_prng_*`` for ``bench.py``'s ``hw_prng_*`` (B3's Philox
-readings against the plain path's ``torch.Generator``), and per row the
-kernel calls made and the launches counted (``extra.rows``).
+readings against the plain path's ``torch.Generator``), the ``bench_plant``
+row (``tools/bench_plant_tpu.py``'s six instrumented-plant configurations,
+``plant_*_plant_steps_per_sec`` and their ``_kernel`` rates through B3), and
+per row the kernel calls made and the launches counted (``extra.rows``).
 """
 
 from __future__ import annotations
@@ -84,6 +86,7 @@ QUICK = {
     "bench_enkf": dict(n_steps=2, reps=1),
     "bench_surrogate": dict(n_steps=4, reps=1, train_steps=2),
     "bench_philox_stats": dict(n_steps=128, rounds=2),
+    "bench_plant": dict(n_steps=2, reps=1),
 }
 
 
@@ -257,6 +260,54 @@ def integrated_inputs(n_plants: int, dtype=F32, device=None):
     bc = R.BoundaryConditions(inlet_flow_rate=5.0, inlet_pH=7.2,
                               inlet_chlorine=0.5, acid_flow_rate=0.1)
     return config, params, plant, bc
+
+
+# tools/bench_plant_tpu.py's configurations: (tag, plants, steps, RKC-fast)
+PLANT_CONFIGS = (("plant_single_rk4", 1, 2048, False),
+                 ("plant_single_rkc", 1, 2048, True),
+                 ("plant_batch1024_rk4", 1024, 256, False),
+                 ("plant_batch4096_rk4", 4096, 128, False),
+                 ("plant_batch4096_rkc", 4096, 128, True),
+                 ("plant_batch16384_rkc", 16384, 64, True))
+
+
+def plant_bench_inputs(n_plants: int, dtype=F32, device=None):
+    """bench_plant's instrumented plant (``tools/bench_plant_tpu.py``: one
+    plant, or a batch randomized from seed 1) and its boundary:
+    ``(config, params, plant, boundary)``."""
+    config = _contact_tank()
+    if n_plants == 1:
+        params, plant = P.make_plant(config, dtype=dtype, device=device)
+    else:
+        params, plant = P.make_plant_batch(config, n_plants, seed=1,
+                                           dtype=dtype, device=device)
+    bc = R.BoundaryConditions(
+        inlet_flow_rate=5.0, inlet_pH=7.2, inlet_chlorine=0.5,
+        inlet_temperature=26.0, acid_flow_rate=0.1,
+        ambient_temperature=15.0, heat_loss_coefficient=50.0)
+    return config, params, plant, bc
+
+
+def plant_bench_plan(config, rkc: bool):
+    """A ``PLANT_CONFIGS`` entry's ``(substeps, stages)``: the RKC2 plan of
+    mode ``fast``, or RK4's ``default_substeps``."""
+    if rkc:
+        return R.default_rkc_plan(config, DT, mode="fast")
+    return R.default_substeps(config, DT), None
+
+
+def plant_bench_plain(params, plant, bc, substeps: int, stages, n_steps: int,
+                      generator=None):
+    """``tools/bench_plant_tpu.py``'s plain rollout, ``record=False``:
+    ``plant_rollout`` for one plant, ``plant_rollout_batched`` for a batch.
+    Returns the plant."""
+    if plant.reactor.pH.ndim == 1:
+        return P.plant_rollout(params, plant, bc, DT, substeps, n_steps,
+                               record=False, stages=stages,
+                               generator=generator)[0]
+    return P.plant_rollout_batched(params, plant, bc, DT, substeps, n_steps,
+                                   record=False, stages=stages,
+                                   generator=generator)[0]
 
 
 def full_chemistry_inputs(n_plants: int, dtype=F32, device=None):
@@ -628,10 +679,40 @@ def bench_philox_stats(n_plants=1024, n_steps=1024, rounds=64, device=None,
     }
 
 
+def bench_plant(n_steps=2048, reps=3, device=None, run=None):
+    """``tools/bench_plant_tpu.py``'s six configurations, 20 zones,
+    ``record=False``: its plain rollout (``plant_bench_plain``) and the
+    same plants through ``plant_rollout_auto`` (kernel B3 on the card), the
+    ``_kernel`` keys. ``n_steps`` caps each configuration's own steps
+    (2048, the most any has, cuts none)."""
+    run = _run(run, device)
+    out = {}
+    for tag, n_plants, steps, rkc in PLANT_CONFIGS:
+        config, params, plant, bc = plant_bench_inputs(n_plants,
+                                                       device=run.device)
+        m, s = plant_bench_plan(config, rkc)
+        gen = torch.Generator(device=run.device).manual_seed(1)
+
+        def plain(p, n, params=params, bc=bc, m=m, s=s, gen=gen):
+            return plant_bench_plain(params, p, bc, m, s, n, generator=gen)
+
+        def auto(p, n, params=params, bc=bc, m=m, s=s):
+            return P.plant_rollout_auto(params, p, bc, DT, m, n,
+                                        record=False, stages=s, seed=1)[0]
+        key = f"{tag}_plant_steps_per_sec"
+        for name, fn, kernel in ((key, plain, None),
+                                 (key + "_kernel", auto,
+                                  "plant_rollout_fused")):
+            sec, n, _ = _timed_chained(run, f"bench_plant/{name}", fn, plant,
+                                       min(steps, n_steps), reps, kernel)
+            out[name] = n_plants * n / sec
+    return out
+
+
 ROWS = (bench_single_plant, bench_scheduled, bench_integrated_single,
         bench_batched, bench_integrated, bench_full_chemistry,
         bench_closed_loop, bench_ekf, bench_enkf, bench_surrogate,
-        bench_philox_stats)
+        bench_philox_stats, bench_plant)
 # the kernel each row launches on the card, once a call (the other rows
 # run plain PyTorch and launch none)
 KERNEL_ROWS = {"bench_single_plant": "rollout_fused",
@@ -639,7 +720,8 @@ KERNEL_ROWS = {"bench_single_plant": "rollout_fused",
                "bench_integrated_single": "plant_rollout_fused",
                "bench_batched": "rollout_fused",
                "bench_integrated": "plant_rollout_fused",
-               "bench_philox_stats": "plant_rollout_fused"}
+               "bench_philox_stats": "plant_rollout_fused",
+               "bench_plant": "plant_rollout_fused"}
 # every rate of the line (each must be finite and > 0)
 RATES = ("single_plant_steps_per_sec", "single_plant_steps_per_sec_rkc_fast",
          "batched_plant_steps_per_sec", "batched_plant_steps_per_sec_rkc_fast",
@@ -653,7 +735,9 @@ RATES = ("single_plant_steps_per_sec", "single_plant_steps_per_sec_rkc_fast",
          "integrated_hil_scheduled_steps_per_sec",
          "scheduled_forcing_steps_per_sec", "closed_loop_plant_steps_per_sec",
          "ekf_filter_steps_per_sec", "enkf_member_steps_per_sec",
-         "surrogate_steps_per_sec", "surrogate_train_steps_per_sec")
+         "surrogate_steps_per_sec", "surrogate_train_steps_per_sec") + tuple(
+             f"{tag}_plant_steps_per_sec{kind}" for tag, *_ in PLANT_CONFIGS
+             for kind in ("", "_kernel"))
 
 
 def device_info(dev: torch.device) -> dict:

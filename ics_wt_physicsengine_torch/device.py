@@ -31,6 +31,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def cli_device(name: str) -> torch.device:
+    """A script's ``--device NAME`` as a ``torch.device``; exits with the
+    reason when the card is asked for and there is none (no move to the
+    CPU). The one refusal of the port's tools and examples."""
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {name}: {e}") from e
+
+
 def numpy_dtype(dtype: torch.dtype):
     """The NumPy counterpart of a torch floating dtype."""
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]

@@ -405,6 +405,13 @@ def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
               record_every=case["record_every"], bits=bits, seed=11,
               step0=case.get("step0", 0), plant0=case.get("plant0", 0),
               record_faults=case.get("faults", False))
+    return b3_vs_plain_on(params, plant, boundary, **kw)
+
+
+def b3_vs_plain_on(params, plant, boundary, **kw):
+    """Kernel B3 and its plain version from one plant with the same
+    arguments (``_fused``'s), both on the card; returns the kernel's result
+    and ``plant_diff`` of the two."""
     got = _fused(FP.plant_kernel, params, plant, boundary, **kw)
     torch.cuda.synchronize()
     ref = _fused(FP.plant_plain, params, plant, boundary, **kw)

@@ -187,6 +187,24 @@ def test_b3_chained_with_the_plain_version(cuda):
     assert diff["max_abs_err"] <= K.TOL[torch.float32], diff
 
 
+@pytest.mark.parametrize("n_plants,rkc", [(1, False), (1024, False),
+                                           (16384, True)])
+def test_b3_at_the_bench_plant_widths(cuda, n_plants, rkc):
+    """The bench_plant row's plants, forcing and plan, launched as
+    plant_rollout_auto launches B3 at record=False (one record, Philox seed
+    1), bit for bit against the plain version."""
+    from ics_wt_physicsengine_torch import bench as BENCH
+
+    config, params, plant, bc = BENCH.plant_bench_inputs(n_plants,
+                                                         device=cuda)
+    m, s = BENCH.plant_bench_plan(config, rkc)
+    got, diff = K.b3_vs_plain_on(params, plant, bc, substeps=m, stages=s,
+                                 n_steps=8, record_every=8, seed=1)
+    assert diff["max_abs_err"] == 0.0, diff
+    assert diff["nan_equal"] and diff["ints_equal"], diff
+    assert bool(torch.isfinite(got[0].reactor.pH).all())
+
+
 def test_philox_stream_of_the_kernel(cuda):
     stats = K.philox_statistics(cuda)
     assert stats["words_equal_plain"]
@@ -750,3 +768,37 @@ def test_soak_on_the_card(cuda):
     checks = {k: v for k, v in result.items() if isinstance(v, bool)}
     assert result["ok"], checks
     assert F.LAUNCHES["rollout_fused"] == result["b1_calls"] == 9
+
+
+def _examples():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from examples_torch import dosing_program_hil, monte_carlo_uq
+
+    return monte_carlo_uq, dosing_program_hil
+
+
+def test_kernel_examples_launch_their_kernels_on_the_card(cuda, capsys):
+    """examples_torch/monte_carlo_uq.py (B1, once) and dosing_program_hil.py
+    (B3, once an hourly segment) on the card at tiny sizes: finite
+    results, and each launched its kernel and no other."""
+    monte_carlo_uq, dosing_program_hil = _examples()
+    F.reset_launch_counts()
+    FP.reset_launch_counts()
+    PS.reset_launch_counts()
+    report = monte_carlo_uq.main(["--plants", "64", "--hours", "0.02"])
+    assert all(np.isfinite(v)
+               for v in report["outlet_chlorine_mg_L"].values())
+    assert report["device"]["platform"] == "gpu"
+    counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
+    assert counts == {k: int(k == "rollout_fused") for k in counts}
+    F.reset_launch_counts()
+    out = dosing_program_hil.main(["--hours", "2"])
+    assert out["n_segments"] == 2 and len(out["series"]["pH_outlet"]) == 120
+    assert any(np.isfinite(v).any() for v in out["series"].values())
+    counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
+    assert counts == {k: 2 * int(k == "plant_rollout_fused") for k in counts}
+    assert "instrument health after the program" in capsys.readouterr().out

@@ -1,8 +1,11 @@
-"""The PyTorch port, its smoke script, its card-side measurement scripts
-(``tools/torch_*.py``) and its GPU tests import neither JAX, optax (the
-card's machine has none) nor the JAX package. Checked on the source
-(an AST scan): the interpreter may have imported JAX before any test runs,
-so ``sys.modules`` proves nothing."""
+"""The PyTorch port, its smoke script, its tools (``tools/torch_*.py``), its
+examples (``examples_torch/*.py``) and its GPU tests import neither JAX,
+optax (the card's machine has none), the JAX package, nor the JAX side's
+scripts: ``examples/`` (``from examples.pid_controller import ...``), the
+JAX tools of ``tools/`` (imported by their file names once ``tools/`` is on
+the path) or the root ``bench.py``. Checked on the source (an AST scan):
+the interpreter may have imported JAX before any test runs, so
+``sys.modules`` proves nothing."""
 
 import ast
 from pathlib import Path
@@ -10,10 +13,15 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "ics_wt_physicsengine_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "ics_wt_physicsengine_tpu",
+             "examples", "bench")
+# the JAX side's tools, by the module names they import under
+JAX_TOOLS = tuple(sorted(p.stem for p in (ROOT / "tools").glob("*.py")
+                         if not p.stem.startswith("torch_")))
 SOURCES = sorted((ROOT / "ics_wt_physicsengine_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gpu.py"] + sorted(
-    (ROOT / "tools").glob("torch_*.py"))
+    (ROOT / "tools").glob("torch_*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported_modules(path):
@@ -28,6 +36,13 @@ def _imported_modules(path):
                     "import_module", "__import__") and node.args and \
                 isinstance(node.args[0], ast.Constant):
             yield str(node.args[0].value)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return (top in FORBIDDEN or top in JAX_TOOLS
+            or (top == "tools" and "." in module
+                and not module.split(".")[1].startswith("torch_")))
 
 
 def test_port_sources_exist():
@@ -62,14 +77,39 @@ def test_fleet_and_parallel_modules_are_scanned(module):
 
 @pytest.mark.parametrize("path", [
     "ics_wt_physicsengine_torch/bench.py", "tools/torch_soak.py",
-    "tools/torch_serve_bench.py"])
+    "tools/torch_serve_bench.py", "tools/torch_rtf_sweep.py",
+    "tools/torch_fleet_scale.py", "tools/torch_load_modbus.py",
+    "tools/torch_load_opcua.py", "tools/torch_web_hmi.py",
+    "tools/torch_multihost_demo.py", "examples_torch/monte_carlo_uq.py",
+    "examples_torch/dosing_program_hil.py",
+    "examples_torch/zone_sharded_highres.py",
+    "examples_torch/pid_controller.py", "examples_torch/fleet_farm.py",
+    "examples_torch/relay_autotune.py", "examples_torch/opcua_scada.py",
+    "examples_torch/ekf_soft_sensor.py"])
 def test_bench_and_tools_are_scanned(path):
     assert ROOT / path in SOURCES
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("from examples.pid_controller import PID, free_port", True),
+    ("import examples.fleet_farm", True),
+    ("import web_hmi", True),
+    ("from tools.load_modbus import worker", True),
+    ("import bench", True),
+    ("from jax import numpy", True),
+    ("from examples_torch.pid_controller import PID", False),
+    ("import torch_serve_bench", False),
+    ("from ics_wt_physicsengine_torch import bench", False)])
+def test_the_scan_catches_the_jax_side(tmp_path, line, bad):
+    """The JAX examples' sibling import (``examples/fleet_farm.py:37``) and
+    the JAX tools are caught; the port's own siblings are not."""
+    src = tmp_path / "script.py"
+    src.write_text(line + "\n")
+    assert any(map(_forbidden, _imported_modules(src))) == bad
 
 
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_import(path):
-    bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in FORBIDDEN]
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
