@@ -240,6 +240,18 @@ Phases:
     --nprocs 1: NCCL, a world of one card) and EX-SERVED (the five served
     examples, each spawning the orchestrator on the card, exit code 0 and
     its marker);
+ 5zf. the studies and the module entry points, as a user runs them (the
+    phase's cuts in STUDY_CUTS, printed): examples_torch/treatment_train.py
+    (EX-TRAIN-3), clarifier_train.py (EX-CLARIFIER), winter_operations.py
+    (EX-WINTER), chloramine_curve.py (EX-CHLORAMINE), jar_test.py (EX-JAR),
+    enkf_highres.py at 16 zones (EX-ENKF-16) and pid_tuning_sweep.py
+    (EX-PID-SWEEP) in-process through their main: each prints its marker,
+    the chloramine curve's Cl2:N ratio is 5.062, the EnKF prints OK, and the
+    chloramine and jar-test JSON lie within 1.5e-3 of the same call on the
+    CPU; no B1-B4 launch (plain PyTorch, as plain XLA in the JAX package).
+    Beside them, in processes of their own, the seven module entry points
+    (python -m ics_wt_physicsengine_torch.core.<axis> --device cuda for the
+    six axes, .sensors.validation): exit code 0 and the suite's marker;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -248,12 +260,12 @@ Launch counts are zeroed just before each run of a main-path entry point
 launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct
 kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
-comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v, 5w and 5y must launch
-none. Every phase from 5t prints the card's name and power limit. Exits
-non-zero, with no result line, when there is no CUDA card, when the package
-is missing, or when any check fails. Times are CUDA-event times after a
-warm-up; every number is this run's, on the card named in the output.
-Details go to chiprun_out/chip_smoke.json.
+comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v,
+5w, 5y and 5zf must launch none. Every phase from 5t prints the card's name
+and power limit. Exits non-zero, with no result line, when there is no CUDA
+card, when the package is missing, or when any check fails. Times are
+CUDA-event times after a warm-up; every number is this run's, on the card
+named in the output. Details go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
@@ -1576,32 +1588,16 @@ def main() -> int:
 
     mpc()
 
-    # TRAIN-3: examples/treatment_train.py
+    # TRAIN-3: examples_torch/treatment_train.py's network and forcing
+    from examples_torch import treatment_train as EX_TT
+
     @phase("path: treatment train")
     def train():
-        def stage(volume):
-            height = volume / 1000.0 / (math.pi * (0.798 / 2) ** 2)
-            return R.ReactorConfiguration(n_zones=5, volume=volume,
-                                          height=height,
-                                          initial_chlorine=0.2)
-
-        W = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.15], [0.0, 1.0, 0.0]])
-        D = np.array([[1, 1, 1], [2, 1, 5], [1, 5, 1]])
-        topo = NW.NetworkTopology(routing=W, delay_steps=D)
-        params, ns0 = NW.make_network(
-            [stage(800.0), stage(4000.0), stage(2500.0)], topo, dtype=f32,
-            device=dev)
-        ta = NW.topology_arrays(topo, f32, dev)
-        dt, m, max_steps = 5.0, 8, 4320
+        params, ns0, ta = EX_TT.make_train(f32, dev)
+        dt, m, max_steps = EX_TT.DT, EX_TT.SUBSTEPS, 4320
 
         def boundary(booster):
-            return R.BoundaryConditions(
-                inlet_flow_rate=torch.tensor([8.0, 0.0, 0.0], device=dev),
-                inlet_pH=7.6, inlet_chlorine=0.05, inlet_temperature=18.0,
-                chlorine_flow_rate=torch.tensor([0.25, 0.0, 0.0],
-                                                device=dev)
-                + booster * torch.tensor([0.0, 0.0, 1.0], device=dev),
-                chlorine_concentration=50.0)
+            return EX_TT.boundary(booster, dev)
 
         one_bc = boundary(0.1)
 
@@ -1616,12 +1612,7 @@ def main() -> int:
         rate = n_steps / (ms / 1e3)
         doses = torch.linspace(0.0, 0.5, 16, device=dev)
         sweep_bc = boundary(doses[:, None])
-        batched = NW.NetworkState(
-            reactor=R.ReactorState(**{
-                k: (None if v is None else v.expand((16,) + tuple(v.shape)))
-                for k, v in vars(ns0.reactor).items()}),
-            ring=ns0.ring.expand((16,) + tuple(ns0.ring.shape)),
-            ring_index=ns0.ring_index.expand((16,)))
+        batched = EX_TT.realizations(ns0, 16)
 
         def run_sweep(ns, n):
             with torch.no_grad():
@@ -3239,6 +3230,110 @@ def main() -> int:
 
     tools_and_examples()
 
+    # ---- 5zf. the studies and the module entry points ---------------------
+    from examples_torch import chloramine_curve as EX_CHL
+    from examples_torch import clarifier_train as EX_CLA
+    from examples_torch import enkf_highres as EX_ENKF
+    from examples_torch import jar_test as EX_JAR
+    from examples_torch import pid_tuning_sweep as EX_PID
+    from examples_torch import winter_operations as EX_WINTER
+
+    def json_close(got, want, atol=1.5e-3):
+        """Every number of ``got`` within ``atol`` of ``want``'s, the rest
+        equal."""
+        if isinstance(want, dict):
+            return set(got) == set(want) and all(
+                json_close(got[k], want[k], atol) for k in want)
+        if isinstance(want, list):
+            return len(got) == len(want) and all(
+                json_close(g, w, atol) for g, w in zip(got, want))
+        if isinstance(want, float):
+            return abs(got - want) <= atol
+        return got == want
+
+    @phase("studies and entry points (EX-TRAIN-3, EX-CLARIFIER, EX-WINTER, "
+           "EX-CHLORAMINE, EX-JAR, EX-ENKF-16, EX-PID-SWEEP)")
+    def studies():
+        print(f"  on {card}; cuts: {STUDY_CUTS}")
+        out = {"cuts": STUDY_CUTS}
+        log_dir = tempfile.mkdtemp(prefix="wt_studies_")
+        # the seven entry points first, in processes of their own, so that
+        # their start overlaps the studies
+        t_entry = time.perf_counter()
+        procs = [script(["-m", f"ics_wt_physicsengine_torch.{name}",
+                         "--device", "cuda"], name, log_dir,
+                        {"OMP_NUM_THREADS": "1"})
+                 for name in ENTRY_POINTS]
+        try:
+            def run(tag, module, markers):
+                args = STUDY_CUTS[tag]
+                reset_kernel_counts()
+                t0 = time.perf_counter()
+                result, text = quietly(module.main, args)
+                secs = time.perf_counter() - t0
+                counts = kernel_counts()
+                out[tag] = dict(args=args, seconds=secs, result=result,
+                                printed=text[-3000:], kernel_launches=counts)
+                check(all(m in text for m in markers),
+                      f"{tag}: examples_torch/{module.__name__.split('.')[-1]}"
+                      f".py {' '.join(args)}: markers {list(markers)} "
+                      f"printed; {secs:.1f} s")
+                no_kernel(tag, counts)
+                return result, text, secs
+
+            run("EX-TRAIN-3", EX_TT,
+                ("booster sweep", "finished-water residual"))
+            run("EX-CLARIFIER", EX_CLA, ("coagulant sweep", "class split"))
+            winter, _, _ = run("EX-WINTER", EX_WINTER,
+                               ("hours_of_surface_ice", "plateau_note"))
+            check(math.isfinite(winter["min_bulk_temp_C"])
+                  and 0.0 <= winter["peak_worst_ice_fraction"] <= 1.0,
+                  f"EX-WINTER: min bulk {winter['min_bulk_temp_C']} C, "
+                  f"{winter['plateau_note']}")
+            for tag, module, markers in (
+                    ("EX-CHLORAMINE", EX_CHL,
+                     ('"stoich_ratio_Cl2_N": 5.062',)),
+                    ("EX-JAR", EX_JAR, ('"optimal_dose_mgL"', '"curve"'))):
+                card_json, _, secs = run(tag, module, markers)
+                t0 = time.perf_counter()
+                cpu_json, _ = quietly(module.main, STUDY_CUTS[tag]
+                                      + ["--device", "cpu"])
+                cpu_s = time.perf_counter() - t0
+                out[tag]["cpu_seconds"] = cpu_s
+                check(json_close(card_json, cpu_json),
+                      f"{tag}: the card's JSON within 1.5e-3 of the same "
+                      f"call on the CPU (card {secs:.1f} s, CPU "
+                      f"{cpu_s:.1f} s)")
+            check(out["EX-CHLORAMINE"]["result"]["stoich_ratio_Cl2_N"]
+                  == 5.062, "EX-CHLORAMINE: Cl2:N ratio 5.062")
+            _, text, _ = run("EX-ENKF-16", EX_ENKF, ("OK",))
+            check(text.splitlines()[-1] == "OK"
+                  and "NOT CONVERGED" not in text,
+                  "EX-ENKF-16: " + " / ".join(text.splitlines()[-3:-1]))
+            pid, _, _ = run("EX-PID-SWEEP", EX_PID, ('"tuned"',))
+            check(pid["n_gains"] == 4096 and all(
+                math.isfinite(v) for v in pid["tuned"].values())
+                and math.isfinite(pid["refined_score"]),
+                f"EX-PID-SWEEP: {pid['n_gains']} candidates, "
+                f"{pid['closed_loop_steps_per_sec']} closed-loop "
+                f"plant-steps/s, best {pid['sweep_best_score']}, refined "
+                f"{pid['refined_score']}, tuned {pid['tuned']}")
+        finally:
+            results = finish_scripts(procs, ENTRY_TIMEOUT_S)
+        entry_s = time.perf_counter() - t_entry
+        entries = {}
+        for name, (rc, text) in zip(ENTRY_POINTS, results):
+            marker = ENTRY_POINTS[name]
+            entries[name] = dict(rc=rc, tail=text[-1500:])
+            check(rc == 0 and marker in text,
+                  f"python -m ics_wt_physicsengine_torch.{name} --device "
+                  f"cuda: exit code {rc}, '{marker}' printed")
+        out["entry_points"] = dict(seconds=entry_s, **entries)
+        report["studies"] = out
+        return True
+
+    studies()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -3369,6 +3464,36 @@ SERVED_EXAMPLES = (
      ["soft sensor assimilated 8 ticks"]),
 )
 SERVED_TIMEOUT_S = 150.0
+# 5zf's cuts (printed with the phase), each to keep the phase near 45 s
+# (46-55 s in three H100 runs with the trains at 0.05 h and 10 EnKF ticks;
+# at either horizon the booster has not yet reached the finished water,
+# which TRAIN-3's dosed-zone check covers):
+# every study is plain PyTorch on the card, launch-bound (the winter tank's
+# 300 s step takes 97 RK4 substeps of the phase axis, the PID plant's 60 s
+# step 121): the two trains' hours (6 and 8 at their defaults), the winter
+# run's days, the contact and settling minutes (30 and 60), the EnKF's
+# zones and ticks (48 and 25, 0.65-1.0 s a tick at 16 zones on an H100;
+# its 64 members kept) and the PID sweep's closed-loop steps and refinement
+# iterations (240 and 30; its 4096 gains kept)
+STUDY_CUTS = {
+    "EX-TRAIN-3": ["--hours", "0.03", "--doses", "16"],
+    "EX-CLARIFIER": ["--hours", "0.03", "--doses", "12"],
+    "EX-WINTER": ["--days", "0.02", "--dt", "300"],
+    "EX-CHLORAMINE": ["--doses", "64", "--contact-min", "2"],
+    "EX-JAR": ["--doses", "32", "--settle-min", "5"],
+    "EX-ENKF-16": ["--zones", "16", "--steps", "6"],
+    "EX-PID-SWEEP": ["--steps", "2", "--refine-iters", "1"],
+}
+# the seven module entry points and the line each prints when its suite
+# passes
+ENTRY_POINTS = {
+    **{f"core.{axis}": f"{title} validation: ALL PASS" for axis, title in (
+        ("nitrogen", "Nitrogen chemistry"), ("gas", "Gas exchange"),
+        ("particles", "Particle dynamics"), ("disinfection", "Disinfection"),
+        ("biofilm", "Biofilm"), ("phase", "Phase-change"))},
+    "sensors.validation": "ALL SENSOR VALIDATIONS PASSED on cuda",
+}
+ENTRY_TIMEOUT_S = 120.0
 
 
 def fmt(x, spec):

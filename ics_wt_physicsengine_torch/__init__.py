@@ -20,7 +20,7 @@ It imports neither JAX nor the JAX package.
                 native C++ plane; the OPC UA bridge).
 - ``__main__``  the serving orchestrator
                 (``python -m ics_wt_physicsengine_torch``).
-- ``parallel/`` ensemble statistics.
+- ``parallel/`` ensemble statistics, meshes of cards, zone shards.
 - ``utils/``    checkpoints, history, profiling, device selection.
 - ``convert``   carries NumPy values (e.g. from the JAX package) across.
 
@@ -30,16 +30,34 @@ Entry points run on the CUDA card unless the caller passes
 
 __version__ = "0.1.0"
 
-from ics_wt_physicsengine_torch.core.reactor import (  # noqa: F401
+from ics_wt_physicsengine_torch.core import (  # noqa: F401
+    AqueousChemistry,
     BoundaryConditions,
+    BufferSystem,
+    FlowParameters,
+    GeometryParameters,
     IntegratedCSTR,
+    NetworkState,
+    NetworkTopology,
     ReactorConfiguration,
     ReactorParams,
     ReactorState,
+    SpatialModel,
+    StratificationParameters,
+    TemperatureDependentKinetics,
+    TransportModel,
     make_initial_state,
+    make_network,
     make_params,
+    network_step,
     rollout,
+    rollout_network,
+    rollout_network_scheduled,
     rollout_scheduled,
     stack_boundary_schedule,
     step,
+    topology_arrays,
 )
+from ics_wt_physicsengine_torch import control  # noqa: F401
+# reached as attributes of the package, as the JAX package's are
+from ics_wt_physicsengine_torch import models, sensors  # noqa: F401

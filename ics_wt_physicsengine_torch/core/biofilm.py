@@ -252,3 +252,13 @@ def validate_biofilm(verbose: bool = True, device=None) -> bool:
         print(f"Biofilm validation: "
               f"{'ALL PASS' if ok else 'FAILURES PRESENT'}")
     return ok
+
+
+if __name__ == "__main__":
+    # python -m ics_wt_physicsengine_torch.core.biofilm [--device cpu]:
+    # exits 1 when a check fails
+    from ics_wt_physicsengine_torch.device import module_device
+
+    raise SystemExit(0 if validate_biofilm(device=module_device(
+        description="The biofilm validation suite, on the CUDA card "
+                    "unless --device names another device.")) else 1)

@@ -262,3 +262,13 @@ def validate_disinfection(verbose: bool = True, device=None) -> bool:
         print(f"Disinfection validation: "
               f"{'ALL PASS' if ok else 'FAILURES PRESENT'}")
     return ok
+
+
+if __name__ == "__main__":
+    # python -m ics_wt_physicsengine_torch.core.disinfection [--device cpu]:
+    # exits 1 when a check fails
+    from ics_wt_physicsengine_torch.device import module_device
+
+    raise SystemExit(0 if validate_disinfection(device=module_device(
+        description="The disinfection validation suite, on the CUDA card "
+                    "unless --device names another device.")) else 1)

@@ -216,3 +216,13 @@ def validate_gas(verbose: bool = True, device=None) -> bool:
         print(f"Gas exchange validation: "
               f"{'ALL PASS' if ok else 'FAILURES PRESENT'}")
     return ok
+
+
+if __name__ == "__main__":
+    # python -m ics_wt_physicsengine_torch.core.gas [--device cpu]:
+    # exits 1 when a check fails
+    from ics_wt_physicsengine_torch.device import module_device
+
+    raise SystemExit(0 if validate_gas(device=module_device(
+        description="The gas exchange validation suite, on the CUDA card "
+                    "unless --device names another device.")) else 1)

@@ -282,8 +282,10 @@ def _blended_boundary(topo_W, topo_Minv, topo_delay, nstate: NetworkState,
         elif particle_fractions is not None:
             fr = torch.as_tensor(particle_fractions, dtype=dtype,
                                  device=dev)
+            # [C], [P, C], or [B..., P, C] once the step has given the
+            # parameters the realizations' axes
             ext_tss = v(boundary.inlet_tss)[..., None] \
-                * fr.broadcast_to((Pn, fr.shape[-1]))
+                * fr.broadcast_to(batch + (Pn, fr.shape[-1]))
         else:
             raise ValueError(
                 "particle-carrying network needs particle_fractions (or "
@@ -339,6 +341,10 @@ def _blended_boundary(topo_W, topo_Minv, topo_delay, nstate: NetworkState,
     return replace(boundary, **kw), q_out
 
 
+# boundary fields whose last axis is a class, not a plant
+_CLASS_FIELDS = ("inlet_tss_classes", "inlet_pathogen_classes")
+
+
 def _tensor_fields(values: dict, like: torch.Tensor) -> dict:
     """Boundary fields with every array (NumPy or tensor) a tensor of
     ``like``'s dtype on its device; numbers and None stay as they are."""
@@ -357,14 +363,21 @@ def network_step(params: R.ReactorParams, topo_arrays,
     ``boundary`` fields are numbers, ``[P]`` per plant or ``[B..., P]`` per
     realization and plant (external inlet + dosing)."""
     W, Minv, delay = topo_arrays
-    boundary = R.BoundaryConditions(**_tensor_fields(
+    values = _tensor_fields(
         {f.name: getattr(boundary, f.name) for f in fields(boundary)},
-        nstate.ring))
+        nstate.ring)
     batch = tuple(nstate.ring.shape[:-3])
     if batch:
         # realizations share the plants' parameters: every [P, ...] field
         # gains the leading axes, as the state's fields have them
         params = map_tensors(lambda x: x.expand(batch + x.shape), params)
+        # and so does every per-plant [P] boundary field: the step aligns
+        # a field with the zone arrays by its leading axes
+        values = {name: (x.expand(batch + x.shape)
+                         if isinstance(x, torch.Tensor) and x.ndim == 1
+                         and name not in _CLASS_FIELDS else x)
+                  for name, x in values.items()}
+    boundary = R.BoundaryConditions(**values)
     has_n = nstate.reactor.ammonia is not None
     pf = (params.particles.inlet_fractions
           if nstate.reactor.tss is not None else None)

@@ -12,6 +12,7 @@ Device and dtype policy of the PyTorch port.
 
 from __future__ import annotations
 
+import argparse
 from dataclasses import fields
 
 import numpy as np
@@ -39,6 +40,17 @@ def cli_device(name: str) -> torch.device:
         return resolve_device(name)
     except RuntimeError as e:
         raise SystemExit(f"--device {name}: {e}") from e
+
+
+def module_device(argv=None, description=None) -> torch.device:
+    """The ``--device NAME`` of a module's entry point (``python -m
+    ics_wt_physicsengine_torch.<module> [--device NAME]``): the card unless
+    NAME names another device, refused through ``cli_device``."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: the CUDA card; no "
+                             "fallback)")
+    return cli_device(parser.parse_args(argv).device)
 
 
 def numpy_dtype(dtype: torch.dtype):

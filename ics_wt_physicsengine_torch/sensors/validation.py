@@ -162,3 +162,13 @@ def run_all_sensor_validations(device=None):
         if not suite(device=device):
             raise RuntimeError(f"{name} sensor validation failed")
     print(f"ALL SENSOR VALIDATIONS PASSED on {device}")
+
+
+if __name__ == "__main__":
+    # python -m ics_wt_physicsengine_torch.sensors.validation
+    # [--device cpu]: a failed check raises, and the exit code is 1
+    from ics_wt_physicsengine_torch.device import module_device
+
+    run_all_sensor_validations(module_device(
+        description="The seven instrument validation suites, on the CUDA "
+                    "card unless --device names another device."))

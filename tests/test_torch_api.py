@@ -537,3 +537,32 @@ def test_every_public_name_has_a_counterpart_or_waits(name):
     stale = sorted(n for n in waits if hasattr(port, n))
     assert not stale, f"{name}: listed as waiting but present: {stale}"
     assert waits <= public, f"{name}: not in the JAX module: {waits - public}"
+
+
+def test_the_top_level_package_has_the_jax_packages_names():
+    """Every public name of ``ics_wt_physicsengine_tpu`` (the 21 names of
+    its ``core`` re-exports, the ``control`` package, and the subpackages
+    that come with it) is a name of the port's top-level package: the same
+    object as the port's ``core`` name, or the port's subpackage. The
+    port's extra names (``make_params``, ``rollout``, ``step`` and so on)
+    stay."""
+    import types
+
+    import ics_wt_physicsengine_tpu as jax_pkg
+
+    import ics_wt_physicsengine_torch as port
+    names = {n for n in dir(jax_pkg) if not n.startswith("_")}
+    assert {"control", "NetworkTopology", "rollout_network",
+            "TemperatureDependentKinetics"} <= names
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert not missing, missing
+    for name in names:
+        ref, value = getattr(jax_pkg, name), getattr(port, name)
+        if isinstance(ref, types.ModuleType):
+            assert value.__name__ == ref.__name__.replace(
+                "ics_wt_physicsengine_tpu", "ics_wt_physicsengine_torch")
+        else:
+            assert value is getattr(tcore, name), name
+    for name in ("make_params", "make_initial_state", "rollout", "step",
+                 "ReactorParams", "device"):
+        assert hasattr(port, name), name

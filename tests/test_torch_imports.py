@@ -85,7 +85,11 @@ def test_fleet_and_parallel_modules_are_scanned(module):
     "examples_torch/zone_sharded_highres.py",
     "examples_torch/pid_controller.py", "examples_torch/fleet_farm.py",
     "examples_torch/relay_autotune.py", "examples_torch/opcua_scada.py",
-    "examples_torch/ekf_soft_sensor.py"])
+    "examples_torch/ekf_soft_sensor.py", "examples_torch/treatment_train.py",
+    "examples_torch/clarifier_train.py",
+    "examples_torch/winter_operations.py",
+    "examples_torch/chloramine_curve.py", "examples_torch/jar_test.py",
+    "examples_torch/enkf_highres.py", "examples_torch/pid_tuning_sweep.py"])
 def test_bench_and_tools_are_scanned(path):
     assert ROOT / path in SOURCES
 

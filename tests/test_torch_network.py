@@ -300,3 +300,47 @@ def test_gradient_through_the_ring_matches_jax():
     want = jax.jit(jax.grad(j_loss))(jnp.asarray(0.3))
     np.testing.assert_allclose(float(got), float(want), rtol=1e-9, atol=0)
     assert float(want) != 0.0
+
+
+def test_particle_realizations_equal_their_own_runs():
+    """A batch of realizations of a particle-carrying network, with
+    per-plant ``[P]`` boundary fields (``sludge_blowdown``,
+    ``filter_flow_rate``) and a ``[doses, P]`` coagulant dose: each
+    realization equals its own unbatched run (examples_torch/
+    clarifier_train.py's sweep). Before the repair the batched step raised:
+    the class fractions were broadcast to ``[P, C]`` only, and a ``[P]``
+    field was aligned with the ``[doses, P, C]`` sludge by its leading
+    axis."""
+    extra = dict(enable_particles=True, initial_tss=2.0)
+    tt = TN.NetworkTopology(routing=TRAIN_W, delay_steps=TRAIN_D)
+    tp, ts = TN.make_network(_configs(TR, 4, **extra), tt, dtype=F64,
+                             device="cpu")
+    ta = TN.topology_arrays(tt, F64, "cpu")
+
+    def bc(dose):
+        return TR.BoundaryConditions(
+            **BC, inlet_flow_rate=torch.tensor([8.0, 0.0, 0.0], dtype=F64),
+            inlet_tss=torch.tensor([60.0, 0.0, 0.0], dtype=F64),
+            coagulant_dose=dose * torch.tensor([1.0, 0.0, 0.0], dtype=F64),
+            filter_flow_rate=torch.tensor([0.0, 0.0, 10.0], dtype=F64),
+            sludge_blowdown=torch.tensor([0.0, 2e-5, 0.0], dtype=F64))
+
+    doses = torch.tensor([0.0, 25.0, 40.0], dtype=F64)
+    tsb = TN.NetworkState(
+        reactor=TR.ReactorState(**{
+            f.name: (None if getattr(ts.reactor, f.name) is None else
+                     getattr(ts.reactor, f.name).expand(
+                         (3,) + getattr(ts.reactor, f.name).shape))
+            for f in dataclasses.fields(ts.reactor)}),
+        ring=ts.ring.expand((3,) + ts.ring.shape),
+        ring_index=ts.ring_index.expand((3,)))
+    tf, _ = TN.rollout_network(tp, ta, tsb, bc(doses[:, None]), 10.0, 8, 5,
+                               record=False)
+    assert tf.reactor.tss.shape == (3, 3, 3, 4)
+    for i in range(3):
+        one, _ = TN.rollout_network(tp, ta, ts, bc(float(doses[i])), 10.0,
+                                    8, 5, record=False)
+        for name in ("tss", "sludge", "chlorine", "pH"):
+            _close(getattr(tf.reactor, name)[i], getattr(one.reactor, name),
+                   f"{name}[{i}]")
+    assert not torch.equal(tf.reactor.tss[0], tf.reactor.tss[1])
