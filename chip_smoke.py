@@ -69,7 +69,7 @@ Phases:
     run_all_sensor_validations, the sensors demo (5-zone IntegratedCSTR.step
     plus seven sensor reads per tick for 180 ticks, then calibration,
     cleaning, reagent replacement), and the same loop on the 20-zone plant
-    for 300 ticks (cut from 600 to make room for 5za-5zd). This path is
+    for 150 ticks (cut from 600 to make room for 5za-5zg). This path is
     per-tick plain PyTorch and launches no
     hand-written kernel;
  5e. FULLCHEM-8192, the six extension axes (nitrogen, gas, particles,
@@ -84,8 +84,8 @@ Phases:
  5f. the same configuration at 16 plants x 20 zones x 20 steps in float64
     on the card and on the CPU: every field within rtol 1e-9 + atol 1e-12;
  5g. PLANT-EXT-1, the six-axis plant with its ten instruments
-    (make_plant, 20 zones) through plant_rollout_auto for 60 steps (cut
-    from 600 to make room for 5h-5m), which takes the plant_step loop:
+    (make_plant, 20 zones) through plant_rollout_auto for 30 steps (cut
+    from 600 to make room for later phases), which takes the plant_step loop:
     steps/s (host clock) and the share of finite readings per instrument;
     no B3 launch. Phases 5e-5g are plain PyTorch: no hand-written kernel
     serves the extension axes;
@@ -99,10 +99,11 @@ Phases:
     256 steps (or a 6 s window); filter-steps/s;
  5j. ENKF-8192, bench.py's bench_enkf: 8192 members, 6 zones, inflation
     1.02, localization radius 2.0; member-steps/s;
- 5k. MPC-20, examples/mpc_dosing.py's settings (20 zones, dt 60 s, so
-    121 RK4 substeps a step): one mpc_plan and one run_mpc segment, with
-    horizon_moves, steps_per_move and iters cut from 6, 10 and 20
-    (MPC_CUT, printed); seconds per re-plan;
+ 5k. MPC-20, examples/mpc_dosing.py's plant (20 zones, dt 60 s, so 121
+    RK4 substeps a step): one plant step's ms, CUDA launches and aten
+    operations; the MPC at this width, horizon_moves, steps_per_move and
+    iters cut from 6, 10 and 20 (MPC_CUT, printed), is EX-MPC-DOSING's
+    run_mpc in 5zg;
  5l. TRAIN-3, examples/treatment_train.py: 3 stages of 5 zones, 15%
     recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 6 s
     window, then its 16-dose booster sweep as one batched call;
@@ -125,10 +126,11 @@ Phases:
  5p. SURR-MPC-6, examples/surrogate_mpc.py as written: fit_plant_surrogate
     (6 zones, dt 30 s, 512 trajectories x 48 steps, 6000 + 600 Adam
     steps), its held-out one-step skill against the identity predictor
-    (< 0.5 per field), then run_mpc_surrogate on the 90-minute step
-    program (horizon 4 x 15, 20 iterations): the last 15 outlet-chlorine
-    values within a mean 0.15 of 2.5 mg/L. The example's physics-shooting
-    run_mpc comparison is not run (printed; MPC-20 covers that path);
+    (< 0.5 per field), then run_mpc_surrogate on the step program cut
+    from 90 to 45 minutes (horizon 4 x 15, 20 iterations; the cut
+    printed): the last 15 outlet-chlorine values within a mean 0.15 of
+    2.5 mg/L. The example's physics-shooting run_mpc comparison runs in
+    5zg (EX-SURR-MPC, cut; printed);
  5q. checkpoints on the card: the fitted SurrogateParams saved from CUDA
     tensors and reloaded into its CUDA template, bit-equal; a 5-zone
     IntegratedCSTR with its seven sensors saved, reloaded into a reactor
@@ -252,6 +254,18 @@ Phases:
     Beside them, in processes of their own, the seven module entry points
     (python -m ics_wt_physicsengine_torch.core.<axis> --device cuda for the
     six axes, .sensors.validation): exit code 0 and the suite's marker;
+ 5zg. the control and surrogate studies in-process through their main (the
+    phase's cuts in CONTROL_STUDY_CUTS, printed; widths kept, depth cut):
+    examples_torch/mpc_dosing.py at its 20 zones with MPC-20's horizon cut
+    (EX-MPC-DOSING: the PID sweep, the scheduled PID run and run_mpc;
+    --output-feedback is not run, an EKF tick of that plant taking ~11 s),
+    parameter_estimation.py (EX-PARAM-EST, 8 zones), surrogate_mpc.py
+    (EX-SURR-MPC: the fit, its validation, the surrogate-planned and
+    physics-shooting MPC on 6 zones, hidden (128, 128)) and
+    surrogate_from_historian.py (EX-SURR-HIST: 32 lanes, commissioning,
+    the historian with its EKF bank, training, the closing MPC): each
+    report's keys, every number finite, k_ref and the mixing scale > 0; no
+    B1-B4 launch (plain PyTorch, as plain XLA in the JAX package);
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -261,8 +275,8 @@ launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct
 kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
 comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v,
-5w, 5y and 5zf must launch none. Every phase from 5t prints the card's name
-and power limit. Exits non-zero, with no result line, when there is no CUDA
+5w, 5y, 5zf and 5zg must launch none. Every phase from 5t prints the
+card's name and power limit. Exits non-zero, with no result line, when there is no CUDA
 card, when the package is missing, or when any check fails. Times are
 CUDA-event times after a warm-up; every number is this run's, on the card
 named in the output. Details go to chiprun_out/chip_smoke.json.
@@ -274,6 +288,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -1546,43 +1561,27 @@ def main() -> int:
                 in (("horizon_moves", 6, moves),
                     ("steps_per_move", 10, per_move), ("iters", 20, iters))
                 if value != full]
-        print(f"  MPC-20: {', '.join(cuts)} ({m} RK4 substeps a 60 s step)")
-        program = torch.cat([torch.full((60,), 2.0, dtype=f32, device=dev),
-                             torch.full((60,), 1.0, dtype=f32, device=dev)])
+        print(f"  MPC-20: {', '.join(cuts)} ({m} RK4 substeps a 60 s step); "
+              "the re-plan and run_mpc at this cut are EX-MPC-DOSING's "
+              "(5zg, the same width), this phase times the plant step")
         params = R.make_params(cfg, dtype=f32, device=dev)
         state = R.make_initial_state(cfg, dtype=f32, device=dev)
-        horizon = moves * per_move
         reset_kernel_counts()
-        plan_ms, (plan, costs) = timed(lambda: C.mpc_plan(
-            params, state, bc, program[:horizon],
-            torch.full((moves,), 0.2, dtype=f32, device=dev), dt=dt,
-            substeps=m, steps_per_move=per_move, iters=iters))
-        seg_ms, res = timed(lambda: C.run_mpc(
-            cfg, program[:per_move], dt, horizon_moves=moves,
-            steps_per_move=per_move, iters=iters, boundary=bc, dtype=f32,
-            device=dev))
+        step_ms, stepped = timed(lambda: R.step(params, state, bc, dt, m))
         counts = kernel_counts()
-        step_ms, _ = timed(lambda: R.step(params, state, bc, dt, m))
         prof = step_profile(lambda: R.step(params, state, bc, dt, m))
-        ok = (bool(torch.isfinite(plan).all())
-              and bool(((plan >= 0) & (plan <= 1.0)).all())
-              and bool(torch.isfinite(costs).all())
-              and bool(torch.isfinite(res["chlorine_outlet"]).all())
-              and res["commands"].shape == (per_move,))
+        ok = all(bool(torch.isfinite(getattr(stepped, f)).all())
+                 for f in ("pH", "chlorine", "temperature"))
         report["MPC-20"] = dict(
             zones=20, dt=dt, substeps=m, horizon_moves=moves,
             steps_per_move=per_move, iters=iters, cut_from=(6, 10, 20),
-            replan_ms=plan_ms, segment_ms=seg_ms,
-            plant_step_ms=step_ms, launches_per_plant_step=prof["launches"],
+            plant_step_ms=step_ms,
+            launches_per_plant_step=prof["launches"],
             aten_ops_per_plant_step=prof["aten_ops"],
-            plan=plan.tolist(), costs=costs.tolist(),
-            segment_score=res["score"], kernel_launches=counts)
-        check(ok, f"MPC-20 (20 zones, dt 60 s, {m} substeps, {moves} move "
-              f"x {per_move} steps, {iters} Adam iteration(s), float32): "
-              f"{plan_ms / 1e3:.2f} s per re-plan; one run_mpc segment "
-              f"(a re-plan + {per_move} steps) {seg_ms / 1e3:.2f} s; one "
+            kernel_launches=counts)
+        check(ok, f"MPC-20 (20 zones, dt 60 s, {m} substeps, float32): one "
               f"plant step {step_ms:.1f} ms, {prof['launches']} CUDA "
-              "kernels; moves in [0, 1] L/min, costs and trajectory finite")
+              f"kernels, {prof['aten_ops']} aten operations; state finite")
         no_kernel("MPC-20", counts)
         return True
 
@@ -1832,8 +1831,9 @@ def main() -> int:
             initial_chlorine=2.0, temperature=20.0)
         dt, Z = 30.0, 6
         print("  SURR-MPC-6: the example's physics-shooting run_mpc "
-              "comparison is not run (about 10^8 launches at this horizon; "
-              "MPC-20 covers that path)")
+              "comparison is not run here (about 10^8 launches at this "
+              "horizon); 5zg runs it, cut (EX-SURR-MPC); the program cut "
+              f"from 90 to {SURR_MINUTES} minutes")
         reset_kernel_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1889,7 +1889,8 @@ def main() -> int:
             run_seconds=run_s, replans=n_plans,
             run_seconds_per_replan=run_s / n_plans, replan_ms=plan_ms,
             score_ISE=sur["score"], last_segment_mean_abs_error=track,
-            cut="the physics-shooting run_mpc comparison is not run",
+            cut="the physics-shooting run_mpc comparison runs in 5zg "
+                "(EX-SURR-MPC), cut",
             kernel_launches=counts)
         check(ok and all(v < 0.5 for v in skill.values()),
               f"SURR-MPC-6 fit (6 zones, dt 30 s, {substeps} substeps, "
@@ -3334,6 +3335,99 @@ def main() -> int:
 
     studies()
 
+    # ---- 5zg. the control and surrogate studies -----------------------------
+    from examples_torch import mpc_dosing as EX_MD
+    from examples_torch import parameter_estimation as EX_PE
+    from examples_torch import surrogate_from_historian as EX_HIST
+    from examples_torch import surrogate_mpc as EX_SM
+
+    def finite(tree):
+        """Every number in a printed report finite."""
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        if isinstance(tree, float):
+            return math.isfinite(tree)
+        return True
+
+    @phase("control and surrogate studies (EX-MPC-DOSING, EX-PARAM-EST, "
+           "EX-SURR-MPC, EX-SURR-HIST)")
+    def control_studies():
+        print(f"  on {card}; cuts: {CONTROL_STUDY_CUTS}")
+        out = {"cuts": CONTROL_STUDY_CUTS}
+
+        def run(tag, module):
+            cut = CONTROL_STUDY_CUTS[tag]
+            kwargs = {"mpc": cut["mpc"]} if "mpc" in cut else {}
+            reset_kernel_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result, text = quietly(lambda: module.main(cut["args"], **kwargs))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = kernel_counts()
+            out[tag] = dict(cut=cut, seconds=secs, result=result,
+                            printed=text[-3000:], kernel_launches=counts)
+            no_kernel(tag, counts)
+            return result, secs
+
+        md, secs = run("EX-MPC-DOSING", EX_MD)
+        check(set(md) == {"program", "pid", "mpc", "mpc_beats_pid"}
+              and finite(md) and md["pid"]["kp"] > 0,
+              f"EX-MPC-DOSING: examples_torch/mpc_dosing.py "
+              f"{' '.join(CONTROL_STUDY_CUTS['EX-MPC-DOSING']['args'])} "
+              f"(20 zones, MPC {CONTROL_STUDY_CUTS['EX-MPC-DOSING']['mpc']}):"
+              f" PID score {md['pid']['score_ISE']} (kp {md['pid']['kp']}, "
+              f"ki {md['pid']['ki']}, {md['pid']['seconds']} s), MPC score "
+              f"{md['mpc']['score_ISE']} ({md['mpc']['seconds']} s), "
+              f"mpc_beats_pid {md['mpc_beats_pid']}; {secs:.1f} s")
+
+        text, secs = run("EX-PARAM-EST", EX_PE)
+        found = [float(x) for x in re.findall(
+            r"(?:k_ref|mixing scale):\s+([-+0-9.e]+)", text)]
+        check(len(found) == 2 and all(math.isfinite(v) and v > 0
+                                      for v in found)
+              and "recovered in" in text,
+              f"EX-PARAM-EST: examples_torch/parameter_estimation.py "
+              f"{' '.join(CONTROL_STUDY_CUTS['EX-PARAM-EST']['args'])}: "
+              f"k_ref and mixing scale {found} finite and > 0; "
+              f"{secs:.1f} s")
+
+        sm, secs = run("EX-SURR-MPC", EX_SM)
+        check(set(sm) == {"fit", "one_step_skill_vs_identity",
+                          "open_loop_drift_chlorine_mgL", "surrogate_mpc",
+                          "physics_mpc", "surrogate_within_10pct"}
+              and finite(sm),
+              f"EX-SURR-MPC: examples_torch/surrogate_mpc.py "
+              f"{' '.join(CONTROL_STUDY_CUTS['EX-SURR-MPC']['args'])} "
+              f"(MPC {CONTROL_STUDY_CUTS['EX-SURR-MPC']['mpc']}): skill "
+              f"{sm['one_step_skill_vs_identity']}, drift "
+              f"{sm['open_loop_drift_chlorine_mgL']} mg/L, surrogate MPC "
+              f"{sm['surrogate_mpc']['score_ISE']} "
+              f"({sm['surrogate_mpc']['seconds']} s), physics MPC "
+              f"{sm['physics_mpc']['score_ISE']} "
+              f"({sm['physics_mpc']['seconds']} s); {secs:.1f} s")
+
+        hist, secs = run("EX-SURR-HIST", EX_HIST)
+        check(set(hist) == {"historian", "fit_seconds",
+                            "true_one_step_skill_vs_identity",
+                            "true_one_step_abs_rmse",
+                            "surrogate_mpc_on_true_plant"}
+              and finite(hist),
+              f"EX-SURR-HIST: examples_torch/surrogate_from_historian.py "
+              f"{' '.join(CONTROL_STUDY_CUTS['EX-SURR-HIST']['args'])} (32 "
+              f"lanes): historian {hist['historian']['seconds']} s, EKF "
+              f"mid-zone Cl RMSE "
+              f"{hist['historian']['ekf_midzone_cl_rmse_mgL']} mg/L, "
+              f"chlorine skill "
+              f"{hist['true_one_step_skill_vs_identity']['chlorine']}, "
+              f"closing MPC tail error "
+              f"{hist['surrogate_mpc_on_true_plant']['tail_mean_abs_err_mgL']}"
+              f" mg/L; {secs:.1f} s")
+        report["control_studies"] = out
+        return True
+
+    control_studies()
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -3379,12 +3473,12 @@ def main() -> int:
 
 
 # plant-20's ticks in the object-API phase (cut from 600 to keep the
-# script near half its time limit)
-OBJECT_PLANT20_TICKS = 300
+# script inside its time limit)
+OBJECT_PLANT20_TICKS = 150
 # FULLCHEM-8192's timed window [s]: its step count is cut to fit it
 FULLCHEM_WINDOW_S = 6.0
 # PLANT-EXT-1's steps (cut from 600 to keep the script inside its time)
-PLANT_EXT_STEPS = 60
+PLANT_EXT_STEPS = 30
 # CL-4096, EKF-1024, ENKF-8192 and TRAIN-3's timed windows [s]
 CONTROL_WINDOW_S = 6.0
 # MPC-20's horizon_moves, steps_per_move and Adam iterations (cut from 6,
@@ -3394,9 +3488,11 @@ MPC_CUT = (1, 10, 1)
 SURR_INFER = (65536, 256)
 # SURR-TRAIN-2048's Adam steps a call (bench.py's)
 SURR_TRAIN_STEPS = 200
-# SURR-MPC-6's fit and program (examples/surrogate_mpc.py's defaults)
+# SURR-MPC-6's fit (examples/surrogate_mpc.py's defaults) and program (cut
+# from its 90 minutes: 5zg's EX-SURR-MPC runs the example's surrogate and
+# physics MPCs)
 SURR_FIT = dict(n_traj=512, n_steps=48, train_steps=6000, rollout_steps=600)
-SURR_MINUTES = 90
+SURR_MINUTES = 45
 # SERVE-CHUNK-20's steps a chunk, its least serving window and the window
 # over which the served rate is read [s]; SERVE-TICK's ticks a run
 SERVE_CHUNK = 3600
@@ -3483,6 +3579,31 @@ STUDY_CUTS = {
     "EX-JAR": ["--doses", "32", "--settle-min", "5"],
     "EX-ENKF-16": ["--zones", "16", "--steps", "6"],
     "EX-PID-SWEEP": ["--steps", "2", "--refine-iters", "1"],
+}
+# 5zg's cuts (printed with the phase), each to keep the phase near 100 s
+# (H100 runs: 40-53 s for EX-MPC-DOSING; 5.4 s for EX-PARAM-EST at 3 Adam
+# steps; 12-19 s for EX-SURR-MPC; 22-37 s for EX-SURR-HIST at 20 ticks, ~1
+# s an EKF-bank tick). Every study is plain PyTorch on the card,
+# launch-bound: the widths are kept (mpc_dosing's 20 zones, a 60 s step of
+# 121 RK4 substeps taking 0.76-2.1 s; the surrogates' 6 zones and (128,
+# 128) hidden layers; the historian's 32 lanes) and the depth cut: the
+# dosing program's minutes (120) and MPC-20's horizon and iterations (6 x
+# 10 steps, 20 iterations); the calibration's Adam steps (300) and window
+# (400 s); the fit's trajectories and Adam steps (512, 6000 + 600) and both
+# MPCs' horizon and iterations (4 x 15 steps, 20 iterations; 15 minutes for
+# 90); the historian's ticks and burn-in (600 and 40), Adam steps (4000 +
+# 400) and closing MPC (45 minutes). mpc_dosing's --output-feedback is not
+# run: an EKF tick of the 20-zone plant (jacfwd through 121 substeps) took
+# 11.2 s on the card, 10 ticks ~2 min
+CONTROL_STUDY_CUTS = {
+    "EX-MPC-DOSING": {"args": ["--minutes", "10"], "mpc": MPC_CUT},
+    "EX-PARAM-EST": {"args": ["--steps", "60", "--iters", "3"]},
+    "EX-SURR-MPC": {"args": ["--minutes", "15", "--traj", "64",
+                             "--train-steps", "200", "--rollout-steps",
+                             "20"], "mpc": (1, 15, 1)},
+    "EX-SURR-HIST": {"args": ["--steps", "12", "--burn", "4",
+                              "--train-steps", "200", "--rollout-steps",
+                              "20", "--mpc-minutes", "8"]},
 }
 # the seven module entry points and the line each prints when its suite
 # passes

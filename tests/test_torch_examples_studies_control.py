@@ -23,6 +23,9 @@ package, with the JAX side's random draws injected into the port.
   k = 0..3). ``"n_gains": 64`` and the best candidate's index equal,
   ``sweep_best_score``, ``refined_score`` and the tuned gains within 1e-3
   relative.
+- Every study of this file and of ``test_torch_examples_mpc.py`` /
+  ``test_torch_examples_surrogate.py`` refuses ``--device cuda`` (its
+  default) on a host without a card.
 """
 
 import dataclasses
@@ -45,7 +48,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from examples_torch import enkf_highres as EH  # noqa: E402
+from examples_torch import mpc_dosing as MD  # noqa: E402
+from examples_torch import parameter_estimation as PE  # noqa: E402
 from examples_torch import pid_tuning_sweep as PT  # noqa: E402
+from examples_torch import surrogate_from_historian as SH  # noqa: E402
+from examples_torch import surrogate_mpc as SM  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -191,7 +198,10 @@ def test_pid_jitter_draws_are_seeded_per_gain():
     assert torch.equal(draws, PT.jitter_draws(CPU))
 
 
-@pytest.mark.parametrize("module", [EH, PT], ids=["enkf", "pid"])
+@pytest.mark.parametrize("module", [EH, PT, MD, PE, SM, SH],
+                         ids=["enkf", "pid", "mpc_dosing",
+                              "parameter_estimation", "surrogate_mpc",
+                              "surrogate_from_historian"])
 def test_the_card_is_the_default_and_is_refused_without_one(module):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")

@@ -89,7 +89,10 @@ def test_fleet_and_parallel_modules_are_scanned(module):
     "examples_torch/clarifier_train.py",
     "examples_torch/winter_operations.py",
     "examples_torch/chloramine_curve.py", "examples_torch/jar_test.py",
-    "examples_torch/enkf_highres.py", "examples_torch/pid_tuning_sweep.py"])
+    "examples_torch/enkf_highres.py", "examples_torch/pid_tuning_sweep.py",
+    "examples_torch/mpc_dosing.py", "examples_torch/parameter_estimation.py",
+    "examples_torch/surrogate_mpc.py",
+    "examples_torch/surrogate_from_historian.py"])
 def test_bench_and_tools_are_scanned(path):
     assert ROOT / path in SOURCES
 
