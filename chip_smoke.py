@@ -69,14 +69,14 @@ Phases:
     run_all_sensor_validations, the sensors demo (5-zone IntegratedCSTR.step
     plus seven sensor reads per tick for 180 ticks, then calibration,
     cleaning, reagent replacement), and the same loop on the 20-zone plant
-    for 150 ticks (cut from 600 to make room for 5za-5zg). This path is
-    per-tick plain PyTorch and launches no
+    for 100 ticks (cut from 600 to keep the script inside its time
+    limit). This path is per-tick plain PyTorch and launches no
     hand-written kernel;
  5e. FULLCHEM-8192, the six extension axes (nitrogen, gas, particles,
     disinfection, biofilm, phase) on bench.py's bench_full_chemistry
     configuration (models/plant.py::full_chemistry_config, 22 fields per
     zone): 8192 Monte-Carlo plants x 20 zones through core.reactor.rollout
-    (RK4 x 3), float32; bench.py's 1000 steps cut to a 6 s window (the cut
+    (RK4 x 3), float32; bench.py's 1000 steps cut to a 4 s window (the cut
     is printed); plant-steps/s, ms per step, and one step's CUDA kernel
     launches, device time and aten operations (torch.profiler, outside the
     window); the fields finite, >= 0 where clipped, temperature inside the
@@ -84,7 +84,7 @@ Phases:
  5f. the same configuration at 16 plants x 20 zones x 20 steps in float64
     on the card and on the CPU: every field within rtol 1e-9 + atol 1e-12;
  5g. PLANT-EXT-1, the six-axis plant with its ten instruments
-    (make_plant, 20 zones) through plant_rollout_auto for 30 steps (cut
+    (make_plant, 20 zones) through plant_rollout_auto for 20 steps (cut
     from 600 to make room for later phases), which takes the plant_step loop:
     steps/s (host clock) and the share of finite readings per instrument;
     no B3 launch. Phases 5e-5g are plain PyTorch: no hand-written kernel
@@ -92,11 +92,11 @@ Phases:
  5h. CL-4096, bench.py's bench_closed_loop: a 16 x 16 x 4 x 4 dual-PID
     gain grid (4096 lanes) on the 20-zone plant, RKC-fast, float32,
     record=False, through control.rollout_closed_loop; bench.py's 2048
-    steps cut to a 6 s window (printed); plant-steps/s and one step's
+    steps cut to a 4 s window (printed); plant-steps/s and one step's
     CUDA launches, device time and aten operations;
  5i. EKF-1024, bench.py's bench_ekf: 1024 EKFs on the 6-zone plant, 4
     taps, measurement_noise 4e-4, readings from a seeded generator,
-    256 steps (or a 6 s window); filter-steps/s;
+    256 steps (or a 4 s window); filter-steps/s;
  5j. ENKF-8192, bench.py's bench_enkf: 8192 members, 6 zones, inflation
     1.02, localization radius 2.0; member-steps/s;
  5k. MPC-20, examples/mpc_dosing.py's plant (20 zones, dt 60 s, so 121
@@ -105,7 +105,7 @@ Phases:
     iters cut from 6, 10 and 20 (MPC_CUT, printed), is EX-MPC-DOSING's
     run_mpc in 5zg;
  5l. TRAIN-3, examples/treatment_train.py: 3 stages of 5 zones, 15%
-    recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 6 s
+    recycle, delays 2 and 5, dt 5 s, RK4 x 8, its 4320 steps cut to a 4 s
     window, then its 16-dose booster sweep as one batched call;
     network-steps/s;
  5m. a closed loop, an EKF bank step (vmap of jacfwd) and an MHE step in
@@ -141,7 +141,7 @@ Phases:
     orchestrator (python -m ics_wt_physicsengine_torch) in a thread on the
     card with --zones 20 --dt 1 --rtf 0 --seed 7 --fused-sensors
     --serve-chunk 3600, a Modbus port and an OPC UA port, for at least
-    10 s; a Modbus client here checks that simulation_time advances, that
+    6 s; a Modbus client here checks that simulation_time advances, that
     an acid_flow_rate command lowers pH_outlet over 12 simulated hours, and,
     with the loop paused through its simulation_running coil, that OPC UA
     reads the register's pH_outlet at the same simulation_time; kernel B3
@@ -149,14 +149,14 @@ Phases:
     call counter); simulated s per wall s, ms a chunk through
     plant_serve_chunk beside the kernel alone on a chunk's tables, and
     launches a chunk;
- 5s. SERVE-TICK, the same command line without --serve-chunk, 60 ticks at
+ 5s. SERVE-TICK, the same command line without --serve-chunk, 40 ticks at
     --rtf 0: --zones 5 (the object path: IntegratedCSTR and seven sensor
     objects on the card) and --zones 20 --fused-sensors (plant_step once a
     tick); ticks/s, no B1-B4 launch;
  5t. SERVE-FLEET-8, the fleet as a user starts it: --fleet 8 --zones 20
     --dt 1 --serve-chunk 1024 --rtf 0 (tools/serve_bench.py --fleet 8
     --chunk 1024's shape) in a thread, a live Modbus client on units 1
-    and 8, for at least 10 s: simulated plant-seconds per wall second
+    and 8, for at least 6 s: simulated plant-seconds per wall second
     (summed over the lanes); a chunk's milliseconds split into
     fleet.serve_chunk_masked (B3's launch through plant_serve_chunk, host
     clock, synchronized), the schedule, the host copies and the register
@@ -169,11 +169,11 @@ Phases:
     pause coil freezing its clock while unit 1 runs on, and its resume;
  5u. SERVE-FLEET-254, the same at --fleet 254 (the Modbus unit-id cap),
     units 1 and 254: the rate, the split and the launches;
- 5v. FLEET-TICK-8, --fleet 8 without --serve-chunk, 60 ticks: ticks/s
+ 5v. FLEET-TICK-8, --fleet 8 without --serve-chunk, 40 ticks: ticks/s
     (host clock between the first and last masked step), no B1-B4
     launch;
  5w. NET-SERVE-3, --network examples/train3.json --fleet 3 --zones 5
-    --serve-chunk 16 --dt 30 for at least 10 s: network-steps/s, no B1-B4
+    --serve-chunk 16 --dt 30 for at least 6 s: network-steps/s, no B1-B4
     launch, stage 1's chlorine dose reaching stage 2's inlet instrument;
     then the same train through fleet.step_masked_network on the card,
     dosed against undosed on equal flows: stage 3 unmoved for the five
@@ -194,8 +194,9 @@ Phases:
     times (64-zone shards, halos at every stage): 3 RK4 steps at
     default_substeps in float64 against the unsharded rollout on the card
     (pH and chlorine within 1e-10, temperature 1e-8), then float32
-    RKC-fast (default_rkc_plan, 16 stages at most) timed over a 5 s
-    window (10 s before 5za-5zd): steps/s, one step's launches, device time and idle share; then
+    RKC-fast (default_rkc_plan, 16 stages at most) timed over a 3 s
+    window: steps/s, one step's launches, device time and idle share;
+    then
     PZ-2x2, a 2 x 2 plants-by-zones mesh of the card at __graft_entry__.py's
     8-zone batch, float64, against the unsharded batched step (1e-10). No
     B1-B4 launch: the zone-sharded step is plain PyTorch, as it is plain
@@ -203,7 +204,7 @@ Phases:
  5z. INTEG-65536, bench.py's integrated batch (65,536 x 20-zone
     instrumented plants, RKC-fast, record=False): the plain
     models.plant.plant_rollout_batched (tap lines, packed draws) over a
-    5 s window (10 s before 5za-5zd; plant-steps/s, one step's launches and idle share, no
+    3 s window (plant-steps/s, one step's launches and idle share, no
     B1-B4 launch) beside the port's route for that workload, B3 through
     plant_rollout_auto (512 steps a call, one launch a call); the two
     routes' physics within 1e-9 of each other on 64 plants in float64;
@@ -219,7 +220,7 @@ Phases:
     generator within bench.py's bounds); SOAK-1M, tools/torch_soak.py at
     1M steps with its instrumented and nitrogen horizons cut (printed):
     all seven checks, B1 once a call; SERVE-BENCH-1,
-    tools/torch_serve_bench.py on one plant over a 10 s window: ok (at
+    tools/torch_serve_bench.py on one plant over a 6 s window: ok (at
     least 1000x real time, polls answered, a healthy pH reading);
  5ze. the tools and examples, as a user runs them (the phase's cuts in
     TOOLS_CUTS, printed): EX-MC-4096, examples_torch/monte_carlo_uq.py at
@@ -266,6 +267,22 @@ Phases:
     the historian with its EKF bank, training, the closing MPC): each
     report's keys, every number finite, k_ref and the mixing scale > 0; no
     B1-B4 launch (plain PyTorch, as plain XLA in the JAX package);
+ 5zh. the ablations, in-process through each tool's main (cuts in
+    ABLATE_CUTS, printed): ABLATE-B3-1, tools/torch_ablate_fused_plant.py
+    at the JAX tool's width and depth (1 x 20 x 16384, RK4, Philox seed 7)
+    with one timed call a variant: six copies of csrc/ with one part of
+    B3's sensor overlay taken out, built into dist/probe/ and swapped into
+    plant_rollout_fused; every variant's physics bit-equal to the shipped
+    build's, no_store's readings and one_sensor's sensor 0 bit-equal to
+    it, no_rand within kernel_checks.TOL of the plant_step loop fed the
+    same constant draws; us a step of the eight rows through the wrapper
+    and of the kernels alone (and B1 in its packed layout, the exchange
+    B3's physics warp uses), the build seconds; the shipped library bound
+    again after the phase. ABLATE-INTEG-16384,
+    tools/torch_ablate_integrated.py at 16384 plants with its depth cut:
+    the five plant-steps/s of the plain plant (physics, full, norand,
+    noline, tap), the instrumented variants' physics within TOL of the
+    bare rollout, no B1-B4 launch;
  6. the 4096-plant RK4 ensemble in float64 against float32;
  7. a JSON line of per-kernel numbers, the card line, and the result line.
 
@@ -274,8 +291,9 @@ Launch counts are zeroed just before each run of a main-path entry point
 launched its own kernel once and no other, and the kernels line reports
 the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct
 kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
-comparisons) and phase 6 lie outside those windows; phases 5d-5q, 5s, 5v,
-5w, 5y, 5zf and 5zg must launch none. Every phase from 5t prints the
+comparisons, 5zh's ablated and timed B1/B3 launches) and phase 6 lie
+outside those windows; phases 5d-5q, 5s, 5v, 5w, 5y, 5zf, 5zg and
+5zh's plain plant must launch none. Every phase from 5t prints the
 card's name and power limit. Exits non-zero, with no result line, when there is no CUDA
 card, when the package is missing, or when any check fails. Times are
 CUDA-event times after a warm-up; every number is this run's, on the card
@@ -3428,6 +3446,86 @@ def main() -> int:
 
     control_studies()
 
+    # ---- 5zh. the ablations of B3 and of the plain plant --------------------
+    import torch_ablate_fused_plant as ABL_B3
+    import torch_ablate_integrated as ABL_INTEG
+
+    @phase("ablations (ABLATE-B3-1, ABLATE-INTEG-16384)")
+    def ablations():
+        print(f"  on {card}; cuts: {ABLATE_CUTS}")
+        out = {"cuts": ABLATE_CUTS}
+        args = ABLATE_CUTS["ABLATE-B3-1"]["args"]
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        b3, _ = quietly(lambda: ABL_B3.main(args))
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        out["ABLATE-B3-1"] = dict(result=b3, seconds=secs,
+                                  kernel_launches=counts)
+        for name, ok in b3["checks"].items():
+            check(ok, f"ABLATE-B3-1 check {name}")
+        print(f"  ABLATE-B3-1 (1 x 20 x {b3['n_steps']}, RK4 x "
+              f"{b3['substeps']}, Philox seed {ABL_B3.SEED}; "
+              f"{' '.join(args)}): ablated builds {b3['build_seconds']} s, "
+              f"the tool {secs:.1f} s, launches outside the main-path "
+              f"windows {counts}")
+        wrapper_us = dict(b3["us_per_step"],
+                          physics=b3["physics_kernel_us_per_step"])
+        for v, us in wrapper_us.items():
+            print(f"    {v:10s} {us:8.3f} us/step through the wrapper, "
+                  f"{b3['kernel_us_per_step'][v]:8.3f} the kernel alone; "
+                  f"registers and spills (float32 RK4) "
+                  f"{b3['registers_spills_f32_rk4'].get(v, 'B1')}")
+        print(f"    physics_packed (B1, packed layout) "
+              f"{b3['kernel_us_per_step']['physics_packed']:8.3f} us/step "
+              f"the kernel alone")
+        print(f"    subsystems (wrapper): {b3['subsystem_us']}")
+        print(f"    subsystems (kernel):  {b3['kernel_subsystem_us']}")
+        check(b3["ok"] and len(b3["us_per_step"]) == 7
+              and len(b3["kernel_us_per_step"]) == 9
+              and all(v > 0 for v in b3["kernel_us_per_step"].values()),
+              f"ABLATE-B3-1: tools/torch_ablate_fused_plant.py ok, eight "
+              f"rows: full {b3['full_plant_us_per_step']} / physics "
+              f"{b3['physics_kernel_us_per_step']} us/step (wrapper), "
+              f"{b3['kernel_us_per_step']['full']} / "
+              f"{b3['kernel_us_per_step']['physics']} (kernels)")
+
+        args = ABLATE_CUTS["ABLATE-INTEG-16384"]["args"]
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        integ, text = quietly(lambda: ABL_INTEG.main(args))
+        secs = time.perf_counter() - t0
+        counts = kernel_counts()
+        rates = integ["plant_steps_per_s"]
+        physics = integ["final"]["physics"]
+        drift = max(float((getattr(integ["final"][v].reactor, f)
+                           - getattr(physics, f)).abs().max())
+                    for v in ("full", "norand", "noline", "tap")
+                    for f in ("pH", "chlorine", "temperature", "time"))
+        out["ABLATE-INTEG-16384"] = dict(rates=rates, seconds=secs,
+                                         printed=text,
+                                         physics_max_abs_diff=drift,
+                                         kernel_launches=counts)
+        print(f"  ABLATE-INTEG-16384 ({' '.join(args)}; the tool "
+              f"{secs:.1f} s):")
+        for line in text.strip().splitlines():
+            print("    " + line)
+        check(set(rates) == set(ABL_INTEG.VARIANTS)
+              and all(math.isfinite(v) and v > 0 for v in rates.values())
+              and drift <= K.TOL[f32],
+              f"ABLATE-INTEG-16384: five rates finite and > 0 "
+              f"({', '.join(f'{k} {v:.4e}' for k, v in rates.items())} "
+              f"plant-steps/s); the instrumented variants' physics within "
+              f"{drift:.2e} of the bare rollout (tol {K.TOL[f32]:g})")
+        no_kernel("ABLATE-INTEG-16384", counts)
+        report["ablations"] = out
+        return True
+
+    shipped_b3 = _build.load("fused_plant")
+    ablations()
+    check(_build.load("fused_plant") is shipped_b3,
+          "after 5zh: the shipped fused_plant library is the one bound")
+
     # ---- 6. float32 against float64 on the ensemble ----------------------
     @phase("float32 vs float64 ensemble")
     def precision():
@@ -3474,13 +3572,14 @@ def main() -> int:
 
 # plant-20's ticks in the object-API phase (cut from 600 to keep the
 # script inside its time limit)
-OBJECT_PLANT20_TICKS = 150
-# FULLCHEM-8192's timed window [s]: its step count is cut to fit it
-FULLCHEM_WINDOW_S = 6.0
+OBJECT_PLANT20_TICKS = 100
+# FULLCHEM-8192's timed window [s]: its step count is cut to fit it (this
+# and every window below cut to keep the script inside its time limit)
+FULLCHEM_WINDOW_S = 4.0
 # PLANT-EXT-1's steps (cut from 600 to keep the script inside its time)
-PLANT_EXT_STEPS = 30
+PLANT_EXT_STEPS = 20
 # CL-4096, EKF-1024, ENKF-8192 and TRAIN-3's timed windows [s]
-CONTROL_WINDOW_S = 6.0
+CONTROL_WINDOW_S = 4.0
 # MPC-20's horizon_moves, steps_per_move and Adam iterations (cut from 6,
 # 10, 20: a 60 s step takes 121 RK4 substeps of plain PyTorch)
 MPC_CUT = (1, 10, 1)
@@ -3496,32 +3595,32 @@ SURR_MINUTES = 45
 # SERVE-CHUNK-20's steps a chunk, its least serving window and the window
 # over which the served rate is read [s]; SERVE-TICK's ticks a run
 SERVE_CHUNK = 3600
-SERVE_WINDOW_S = 10.0
+SERVE_WINDOW_S = 6.0
 SERVE_RATE_WINDOW_S = 3.0
-SERVE_TICKS = 60
+SERVE_TICKS = 40
 # SERVE-FLEET-8/254's steps a chunk, least serving windows and the window
 # over which the served rate is read [s]; NET-SERVE-3's
 FLEET_CHUNK = 1024
-FLEET_WINDOW_S = {8: 10.0, 254: 10.0}
+FLEET_WINDOW_S = {8: 6.0, 254: 6.0}
 FLEET_RATE_WINDOW_S = 3.0
-NET_WINDOW_S = 10.0
+NET_WINDOW_S = 6.0
 NET_DOSE_STEPS = 200
 NET_RATE_WINDOW_S = 3.0
 # ZONE-256's zones, float64 parity steps and float32 timed window [s];
 # INTEG-65536's plants, its plain path's window [s] and B3's steps a call
 ZONE_ZONES = 256
 ZONE_PARITY_STEPS = 3
-ZONE_WINDOW_S = 5.0
+ZONE_WINDOW_S = 3.0
 INTEG_PLANTS = 65536
-INTEG_WINDOW_S = 5.0
+INTEG_WINDOW_S = 3.0
 INTEG_FUSED_STEPS = 512
 # SOAK-1M's steps (tools/soak.py's 1M: below ~400,000 its drift check sees
 # the tank's start-up transient) and its instrumented and nitrogen
 # horizons (cut from 2000 and 2048); SERVE-BENCH-1's window [s]
 SOAK_STEPS = 1_000_000
 SOAK_PLANT_STEPS = 40
-SOAK_NITROGEN_STEPS = 32
-SERVE_BENCH_WINDOW_S = 10.0
+SOAK_NITROGEN_STEPS = 16
+SERVE_BENCH_WINDOW_S = 6.0
 # the steps of 3b's B3 checks at the bench_plant row's widths (its own
 # 64-2048 steps are cut: the plain version takes ~40 ms a step on an H100)
 BENCH_PLANT_CHECK_STEPS = 20
@@ -3537,7 +3636,7 @@ BENCH_PLANT_CHECK_STEPS = 20
 # and steps (rtf 1 alone takes 120 s), the fleet ladder's ticks and the
 # load tools' seconds
 TOOLS_CUTS = {
-    "EX-MC-4096 --with-sensors": 0.025,
+    "EX-MC-4096 --with-sensors": 0.015,
     "EX-ZONE-256 args": ["--steps", "6", "--integrator", "rkc-fast"],
     "BENCH-PLANT call limit s": 0.2,
     "BENCH-PLANT steps": 256,
@@ -3604,6 +3703,14 @@ CONTROL_STUDY_CUTS = {
     "EX-SURR-HIST": {"args": ["--steps", "12", "--burn", "4",
                               "--train-steps", "200", "--rollout-steps",
                               "20", "--mpc-minutes", "8"]},
+}
+# the ablation tools' cuts (5zh): B3's at the JAX tool's width and depth (1
+# x 20 x 16384) with one timed call a variant for three; the plain plant's
+# 16384 plants with 16 steps for 64 and one timed call for three
+ABLATE_CUTS = {
+    "ABLATE-B3-1": {"args": ["--steps", "16384", "--reps", "1"]},
+    "ABLATE-INTEG-16384": {"args": ["--plants", "16384", "--steps", "16",
+                                    "--reps", "1"]},
 }
 # the seven module entry points and the line each prints when its suite
 # passes

@@ -719,15 +719,14 @@ def test_plant_zone_mesh_on_the_card_matches_the_unsharded(cuda):
         assert err <= 1e-10, (field, err)
 
 
-def _tools():
+def _tools(name="torch_soak"):
+    import importlib
     import os
     import sys
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tools"))
-    import torch_soak
-
-    return torch_soak
+    return importlib.import_module(name)
 
 
 def test_quick_bench_on_the_card(cuda, tmp_path):
@@ -802,3 +801,27 @@ def test_kernel_examples_launch_their_kernels_on_the_card(cuda, capsys):
     counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
     assert counts == {k: 2 * int(k == "plant_rollout_fused") for k in counts}
     assert "instrument health after the program" in capsys.readouterr().out
+
+
+def test_ablate_fused_plant_on_the_card(cuda):
+    """tools/torch_ablate_fused_plant.py at 256 steps: the six ablated
+    copies of B3 build and launch through plant_rollout_fused; every
+    variant's physics bit-equal to the shipped build's, no_store's readings
+    and one_sensor's sensor 0 bit-equal to it, no_rand within TOL of the
+    plain plant_step loop fed the same constant draws; no_rand's, no_hist's
+    and no_taps' readings differ from it; the packed B1 launched and
+    bit-equal to the shipped B1; the shipped library bound again
+    afterwards."""
+    from ics_wt_physicsengine_torch.ops import _build
+
+    ablate = _tools("torch_ablate_fused_plant")
+    shipped = _build.load("fused_plant")
+    result = ablate.ablate(cuda, n_steps=256, reps=1, check_steps=64,
+                           log=lambda msg: None)
+    assert result["ok"], result["checks"]
+    assert len(result["checks"]) == 25
+    assert _build.load("fused_plant") is shipped
+    assert set(result["kernel_us_per_step"]) == \
+        set(ablate.VARIANTS) | {"physics", "physics_packed"}
+    assert all(v > 0 for v in result["kernel_us_per_step"].values())
+    assert result["device"]["platform"] == "gpu"

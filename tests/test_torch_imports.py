@@ -80,7 +80,8 @@ def test_fleet_and_parallel_modules_are_scanned(module):
     "tools/torch_serve_bench.py", "tools/torch_rtf_sweep.py",
     "tools/torch_fleet_scale.py", "tools/torch_load_modbus.py",
     "tools/torch_load_opcua.py", "tools/torch_web_hmi.py",
-    "tools/torch_multihost_demo.py", "examples_torch/monte_carlo_uq.py",
+    "tools/torch_multihost_demo.py", "tools/torch_ablate_fused_plant.py",
+    "tools/torch_ablate_integrated.py", "examples_torch/monte_carlo_uq.py",
     "examples_torch/dosing_program_hil.py",
     "examples_torch/zone_sharded_highres.py",
     "examples_torch/pid_controller.py", "examples_torch/fleet_farm.py",
@@ -101,11 +102,14 @@ def test_bench_and_tools_are_scanned(path):
     ("from examples.pid_controller import PID, free_port", True),
     ("import examples.fleet_farm", True),
     ("import web_hmi", True),
+    ("import ablate_fused_plant", True),
+    ("from ablate_integrated import SENSOR_DIMS", True),
     ("from tools.load_modbus import worker", True),
     ("import bench", True),
     ("from jax import numpy", True),
     ("from examples_torch.pid_controller import PID", False),
     ("import torch_serve_bench", False),
+    ("from torch_rollout_compare import ablated_sources", False),
     ("from ics_wt_physicsengine_torch import bench", False)])
 def test_the_scan_catches_the_jax_side(tmp_path, line, bad):
     """The JAX examples' sibling import (``examples/fleet_farm.py:37``) and
