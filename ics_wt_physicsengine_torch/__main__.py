@@ -68,6 +68,7 @@ from ics_wt_physicsengine_torch.sensors import (
     SensorStatus,
     create_realistic_sensor_suite,
 )
+from ics_wt_physicsengine_torch.utils.profiling import spanned
 
 logger = logging.getLogger(__name__)
 
@@ -589,6 +590,7 @@ def _slew_decay(n_steps: int, dt: float, tau: float):
     return np.zeros(n_steps), 0.0
 
 
+@spanned("wt.serve.schedule")
 def build_chunk_schedule(applied: BoundaryConditions,
                          commanded: BoundaryConditions,
                          n_steps: int, dt: float, tau: float, device=None
@@ -681,6 +683,7 @@ def _readings_from_outputs(outputs, lane: Optional[int] = None
     return readings
 
 
+@spanned("wt.serve.readings")
 def _readings_from_chunk(chunk, t: float) -> Dict[str, SensorReading]:
     """The last step of a serving chunk (``models.plant.ServeChunk``) as
     SensorReading objects: value, status and fault; the chunk keeps no raw

@@ -45,6 +45,7 @@ from ics_wt_physicsengine_torch.sensors.types import (InstallationQuality,
                                                       SampleLine, SensorFault,
                                                       SensorStatus)
 from ics_wt_physicsengine_torch.utils.dispatch import checkpointed, map_tensors
+from ics_wt_physicsengine_torch.utils.profiling import span, spanned
 
 
 @dataclass(frozen=True)
@@ -414,6 +415,7 @@ def _last_codes(params, plant: PlantState, fault, attr: str):
     return status.to(torch.int32)
 
 
+@spanned("wt.b3.rings")
 def _join_rings(old: SB.SensorCarry, new: SB.SensorCarry, window: int
                 ) -> SB.SensorCarry:
     """The sample-line ring after a fused chunk, joined with the ring before
@@ -447,6 +449,7 @@ def _join_rings(old: SB.SensorCarry, new: SB.SensorCarry, window: int
         line_ptr=torch.remainder(keep, C).to(new.line_ptr.dtype))
 
 
+@spanned("wt.serve.chunk")
 def plant_serve_chunk(params: PlantParams, plant: PlantState,
                       schedule: R.BoundaryConditions, *, dt: float,
                       substeps: int, stages=None, record_every: int = 1,
@@ -510,14 +513,16 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
                 sensor = getattr(new_plant, attr)
                 setattr(new_plant, attr, replace(sensor, base=_join_rings(
                     old, sensor.base, d_max + 1)))
-        names = tuple(values)
-        values = torch.stack([values[n] for n in names], dim=1)
-        faults = torch.stack([faults[n] for n in names], dim=1)
-        last = {}
-        for k, (name, attr, _) in enumerate(FP.SENSORS):
-            fault = faults[-1, k]
-            last[name] = (getattr(new_plant, attr).base.last_value,
-                          _last_codes(params, new_plant, fault, attr), fault)
+        with span("wt.serve.codes"):
+            names = tuple(values)
+            values = torch.stack([values[n] for n in names], dim=1)
+            faults = torch.stack([faults[n] for n in names], dim=1)
+            last = {}
+            for k, (name, attr, _) in enumerate(FP.SENSORS):
+                fault = faults[-1, k]
+                last[name] = (getattr(new_plant, attr).base.last_value,
+                              _last_codes(params, new_plant, fault, attr),
+                              fault)
         k = record_every // every
         return ServeChunk(new_plant, names, values[k - 1::k],
                           faults[k - 1::k], last)

@@ -87,6 +87,7 @@ from ics_wt_physicsengine_torch.sensors import flow as SF
 from ics_wt_physicsengine_torch.sensors import ph as SP
 from ics_wt_physicsengine_torch.sensors import temperature as ST
 from ics_wt_physicsengine_torch.utils.dispatch import ieee_div
+from ics_wt_physicsengine_torch.utils.profiling import span, spanned
 
 # ---------------------------------------------------------------------------
 # Registries: sensor order, randomness layout, packed column layouts
@@ -428,6 +429,7 @@ def philox_words_kernel(seed: int, n_steps: int, batch: int,
 # ---------------------------------------------------------------------------
 
 
+@spanned("wt.b3.lead_in")
 def _resolve_lead_in(base_carry, delay_s, d_arr, d_max, t0, dt, batch,
                      dtype):
     """Prefill ``[d_max + 1, batch]`` for a sample-line history: what the
@@ -490,6 +492,7 @@ def _resolve_lead_in(base_carry, delay_s, d_arr, d_max, t0, dt, batch,
     return torch.where(ok, torch.gather(lead_gb, 0, gi), math.nan).to(dtype)
 
 
+@spanned("wt.b3.rings")
 def _rebuild_rings(hist, old_carry, d_max: int, n_steps: int, t0, dt,
                    batch: int, dtype):
     """Rebuild a sensor's sample-line ring from the written-back circular
@@ -525,6 +528,7 @@ def _rebuild_rings(hist, old_carry, d_max: int, n_steps: int, t0, dt,
             "line_count": count, "line_ptr": ptr}
 
 
+@spanned("wt.b3.statics")
 def sensor_statics(params, dt: float):
     """Per sensor ``(attr, normalized zone, sensor type, d_static, d_max)``:
     what is uniform over the batch and fixes the kernel's shape. ``d_static``
@@ -618,6 +622,7 @@ def _column(x, batch, dtype, device):
         .expand(batch)
 
 
+@spanned("wt.b3.tables")
 def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
                  consume_line: bool = True) -> PlantTables:
     """Pack a plant (single ``[Z]`` or batched ``[B, Z]``) and its forcing
@@ -1115,6 +1120,7 @@ def table_runner(params, plant):
     return plant_kernel if device.type == "cuda" else plant_plain
 
 
+@spanned("wt.b3.wrapper")
 def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
                   stages, record_every, bits, seed, consume_line,
                   step0: int = 0, plant0: int = 0,
@@ -1131,63 +1137,68 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
     dtype = state.pH.dtype
     tables = build_tables(params, plant, boundary, dt=dt, n_steps=n_steps,
                           consume_line=consume_line)
-    out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
-              stages=stages, record_every=record_every, bits=bits, seed=seed,
-              step0=step0, plant0=plant0, record_faults=record_faults)
+    with span("wt.b3.launch"):
+        out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
+                  stages=stages, record_every=record_every, bits=bits,
+                  seed=seed, step0=step0, plant0=plant0,
+                  record_faults=record_faults)
 
-    def unprep(x):
-        return x[0] if single else x
+    with span("wt.b3.unpack"):
+        def unprep(x):
+            return x[0] if single else x
 
-    last = tables.forcing[n_steps - 1] if tables.scheduled \
-        else tables.forcing[:, 0] if single else tables.forcing
-    col = F.BOUNDARY_FIELDS.index
-    total_flow = last[col("inlet_flow_rate")] + last[col("acid_flow_rate")] \
-        + last[col("chlorine_flow_rate")]
-    # each plant's clock; a batch that kept one shared clock keeps it
-    time = out.time.to(state.time.dtype)
-    time = time.reshape(state.time.shape) \
-        if state.time.numel() == batch else time[0] + torch.zeros_like(
-            state.time)
-    new_reactor = R._update_derived(R.ReactorState(
-        time=time,
-        pH=unprep(out.ph), chlorine=unprep(out.cl),
-        temperature=unprep(out.t),
-        flow_rate=total_flow + torch.zeros_like(state.flow_rate)))
+        last = tables.forcing[n_steps - 1] if tables.scheduled \
+            else tables.forcing[:, 0] if single else tables.forcing
+        col = F.BOUNDARY_FIELDS.index
+        total_flow = last[col("inlet_flow_rate")] \
+            + last[col("acid_flow_rate")] + last[col("chlorine_flow_rate")]
+        # each plant's clock; a batch that kept one shared clock keeps it
+        time = out.time.to(state.time.dtype)
+        time = time.reshape(state.time.shape) \
+            if state.time.numel() == batch else time[0] + torch.zeros_like(
+                state.time)
+        new_reactor = R._update_derived(R.ReactorState(
+            time=time,
+            pH=unprep(out.ph), chlorine=unprep(out.cl),
+            temperature=unprep(out.t),
+            flow_rate=total_flow + torch.zeros_like(state.flow_rate)))
 
-    # the PlantState again: updated carries, and delay rings rebuilt from
-    # the written-back histories
-    t0 = tables.time
-    sensors_new = {}
-    for _, attr, kind in SENSORS:
-        old = getattr(plant, attr)
-        base_updates, overlay_updates = {}, {}
-        for a, sub, field, tag in _CCOLS:
-            if a != attr:
-                continue
-            ref = _leaf(old, sub, field)
-            if tag == "f":
-                val = unprep(out.carry_float[_FCOL[(a, sub, field)]]) \
-                    .to(ref.dtype)
-            else:
-                val = unprep(out.carry_int[_ICOL[(a, sub, field)]])
-                val = val != 0 if tag == "b" else val
-            (base_updates if sub == "base" else overlay_updates)[field] = val
-        if attr in _LINE_ATTRS:
-            i = _LINE_ATTRS.index(attr)
-            d_max = tables.lead[i].shape[0] - 1
-            if d_max > 0 and old.base.line_values is not None:
-                base_updates.update(_rebuild_rings(
-                    out.hist[i], old.base, d_max, n_steps, t0, dt, batch,
-                    dtype))
-        sensors_new[attr] = replace(
-            old, base=replace(old.base, **base_updates), **overlay_updates)
+        # the PlantState again: updated carries, and delay rings rebuilt
+        # from the written-back histories
+        t0 = tables.time
+        sensors_new = {}
+        for _, attr, kind in SENSORS:
+            old = getattr(plant, attr)
+            base_updates, overlay_updates = {}, {}
+            for a, sub, field, tag in _CCOLS:
+                if a != attr:
+                    continue
+                ref = _leaf(old, sub, field)
+                if tag == "f":
+                    val = unprep(out.carry_float[_FCOL[(a, sub, field)]]) \
+                        .to(ref.dtype)
+                else:
+                    val = unprep(out.carry_int[_ICOL[(a, sub, field)]])
+                    val = val != 0 if tag == "b" else val
+                (base_updates if sub == "base"
+                 else overlay_updates)[field] = val
+            if attr in _LINE_ATTRS:
+                i = _LINE_ATTRS.index(attr)
+                d_max = tables.lead[i].shape[0] - 1
+                if d_max > 0 and old.base.line_values is not None:
+                    base_updates.update(_rebuild_rings(
+                        out.hist[i], old.base, d_max, n_steps, t0, dt, batch,
+                        dtype))
+            sensors_new[attr] = replace(
+                old, base=replace(old.base, **base_updates),
+                **overlay_updates)
 
-    new_plant = PlantState(reactor=new_reactor, **sensors_new)
+        new_plant = PlantState(reactor=new_reactor, **sensors_new)
 
-    def per_sensor(rec):
-        return {rname: rec[:, k, 0] if single else rec[:, k]
-                for k, (rname, _, _) in enumerate(SENSORS)}
+        def per_sensor(rec):
+            return {rname: rec[:, k, 0] if single else rec[:, k]
+                    for k, (rname, _, _) in enumerate(SENSORS)}
 
-    if record_faults:
-        return new_plant, per_sensor(out.readings), per_sensor(out.faults)
-    return new_plant, per_sensor(out.readings)
+        if record_faults:
+            return new_plant, per_sensor(out.readings), per_sensor(out.faults)
+        return new_plant, per_sensor(out.readings)

@@ -48,6 +48,7 @@ from ics_wt_physicsengine_torch.core import constants as c
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.ops.integrators import _rkc2_coefficients
 from ics_wt_physicsengine_torch.utils.dispatch import ieee_div as _div
+from ics_wt_physicsengine_torch.utils.profiling import span, spanned
 
 LN10 = math.log(10.0)
 MAX_ZONES = 128
@@ -608,6 +609,7 @@ def _finish(state, single, outs, total_flow, dt, n_steps, record_every):
                        "temperature": unprep_traj(traj[2])}
 
 
+@spanned("wt.b1.wrapper")
 def rollout_fused(params: R.ReactorParams, state: R.ReactorState,
                   boundary: R.BoundaryConditions, *, dt: float,
                   substeps: int, n_steps: int,
@@ -625,11 +627,13 @@ def rollout_fused(params: R.ReactorParams, state: R.ReactorState,
     """
     _check_params(params)
     _check_record(n_steps, record_every)
-    single, batch, (ph, cl, t), ptab = _prepare(params, state)
-    btab = boundary_table(boundary, batch, ph.dtype, ph.device)
+    with span("wt.b1.tables"):
+        single, batch, (ph, cl, t), ptab = _prepare(params, state)
+        btab = boundary_table(boundary, batch, ph.dtype, ph.device)
     run = rollout_kernel if ph.is_cuda else rollout_plain
-    outs = run(ptab, btab, ph, cl, t, dt=dt, substeps=substeps,
-               n_steps=n_steps, stages=stages, record_every=record_every)
+    with span("wt.b1.launch"):
+        outs = run(ptab, btab, ph, cl, t, dt=dt, substeps=substeps,
+                   n_steps=n_steps, stages=stages, record_every=record_every)
     total_flow = (boundary.inlet_flow_rate + boundary.acid_flow_rate
                   + boundary.chlorine_flow_rate)
     return _finish(state, single, outs, total_flow, dt, n_steps,

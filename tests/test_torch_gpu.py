@@ -825,3 +825,57 @@ def test_ablate_fused_plant_on_the_card(cuda):
         set(ablate.VARIANTS) | {"physics", "physics_packed"}
     assert all(v > 0 for v in result["kernel_us_per_step"].values())
     assert result["device"]["platform"] == "gpu"
+
+
+def test_spans_leave_the_card_bit_equal_and_hold_the_launch(cuda):
+    """The program's spans on the card (``utils/profiling.py``): a B3
+    call's and a served chunk's outputs bit-equal with spans on and off,
+    and under ``torch.profiler`` B3's kernel launched from inside
+    ``wt.b3.launch``, on one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_wt_physicsengine_torch import __main__ as M
+    from ics_wt_physicsengine_torch.utils import profiling as PF
+
+    substeps, _ = K.plant_plan(20, "rk4")
+    params, plant = K.plant_case(20, 8, torch.float32, cuda)
+    one = P.make_plant(R.ReactorConfiguration(n_zones=20), device=cuda)
+    sched, _ = M.build_chunk_schedule(K.BC, K.BC, 64, 1.0, 0.0, device=cuda)
+
+    def both():
+        return (FP.plant_rollout_fused(params, plant, K.BC, dt=1.0,
+                                       substeps=substeps, n_steps=64,
+                                       record_every=4, seed=3),
+                P.plant_serve_chunk(*one, sched, dt=1.0, substeps=substeps,
+                                    seed=3, step0=64))
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x]
+        if dataclasses.is_dataclass(x):
+            return [t for f in dataclasses.fields(x)
+                    for t in tensors(getattr(x, f.name))]
+        if isinstance(x, dict):
+            return [t for k in sorted(x) for t in tensors(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [t for v in x for t in tensors(v)]
+        return []
+
+    off = tensors(both())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with PF.recording() as spans:
+            on = tensors(both())
+        torch.cuda.synchronize(cuda)
+    assert len(on) == len(off) > 20
+    for a, b in zip(on, off):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    launch = [s for s in spans if s[0] == "wt.b3.launch"]
+    assert len(launch) == 2 and spans.dropped == 0
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [e for e in events if "plant_kernel" in e.name()]
+    calls = [e.start_ns() for e in events
+             if e.name().startswith("cudaLaunchKernel")]
+    assert len(kernels) == 2
+    for (_, start, end, _, _), kernel in zip(launch, kernels):
+        assert any(start <= t <= end for t in calls)
+        assert start <= kernel.start_ns()
