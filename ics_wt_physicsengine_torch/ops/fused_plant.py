@@ -66,12 +66,18 @@ runs the plain version (the same algorithm as a Python loop over steps on
 ``[B]``/``[B, Z]`` tensors, calling the ``sensors`` package's read
 functions), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
 counts kernel launches.
+
+On the card the wrapper only enqueues work: once ``sensor_statics`` has
+seen a parameter set and ``dt`` (``STATICS_CACHE`` counts its hits and
+misses), no call synchronizes with the device or copies from the host
+with a wait, so the host prepares the next call while B3 runs this one.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from dataclasses import dataclass, replace
 from typing import List, Optional
 
@@ -454,8 +460,7 @@ def _resolve_lead_in(base_carry, delay_s, d_arr, d_max, t0, dt, batch,
     lt = lt.expand(batch, C)
 
     def per_plant(x, to):
-        return torch.as_tensor(x, device=device).to(to).reshape(-1) \
-            .expand(batch)
+        return F.on_device(x, device).to(to).reshape(-1).expand(batch)
 
     count = per_plant(base_carry.line_count, torch.int64)
     ptr = per_plant(base_carry.line_ptr, torch.int64)
@@ -504,21 +509,21 @@ def _rebuild_rings(hist, old_carry, d_max: int, n_steps: int, t0, dt,
     cap = d_max + 1
     C = int(old_carry.line_values.shape[-1])
     k = min(n_steps, cap, C)
-    gs = list(range(n_steps - k, n_steps))
-    # the history slot of in-rollout step g is g % cap
-    vals = torch.stack([hist[g % cap] for g in gs]) if gs else \
-        hist.new_empty((0, batch))                                 # [k, B]
-    t0b = torch.as_tensor(t0, device=device).to(dtype).reshape(-1) \
-        .expand(batch)
-    times = t0b[None, :] + (torch.tensor(gs, dtype=dtype, device=device)
-                            [:, None] + 1.0) * dt
+    # the in-rollout steps kept, made on the device (a host list would be
+    # a blocking copy behind the kernel just launched); the history slot
+    # of step g is g % cap
+    g = torch.arange(n_steps - k, n_steps, device=device)
+    vals = hist.index_select(0, torch.remainder(g, cap))         # [k, B]
+    t0b = F.on_device(t0, device).to(dtype).reshape(-1).expand(batch)
+    times = t0b[None, :] + (g.to(dtype)[:, None] + 1.0) * dt
     ref_v, ref_t = old_carry.line_values, old_carry.line_times
     single = ref_v.ndim == 1
-    new_v = torch.zeros((batch, C), dtype=ref_v.dtype, device=device)
-    new_t = torch.full((batch, C), -math.inf, dtype=ref_t.dtype,
-                       device=device)
-    new_v[:, :k] = vals.T.to(ref_v.dtype)
-    new_t[:, :k] = times.T.to(ref_t.dtype)
+    # joined, not written into a slice: a single plant's slice would be a
+    # device-to-device cudaMemcpy
+    new_v = torch.cat([vals.T.to(ref_v.dtype), torch.zeros(
+        (batch, C - k), dtype=ref_v.dtype, device=device)], dim=1)
+    new_t = torch.cat([times.T.to(ref_t.dtype), torch.full(
+        (batch, C - k), -math.inf, dtype=ref_t.dtype, device=device)], dim=1)
     if single:
         new_v, new_t = new_v[0], new_t[0]
     shape = () if single else (batch,)
@@ -528,13 +533,64 @@ def _rebuild_rings(hist, old_carry, d_max: int, n_steps: int, t0, dt,
             "line_count": count, "line_ptr": ptr}
 
 
+# ``sensor_statics``' results by ``_statics_key``, each with weak references
+# to the delay tensors it read, and how many lookups found one (``hits``)
+# and how many computed it (``misses``).
+_STATICS: dict = {}
+_STATICS_MAX = 64
+STATICS_CACHE = {"hits": 0, "misses": 0}
+
+
+def _statics_key(params, dt: float):
+    """What ``sensor_statics`` reads, as ``(key, delay tensors)``: ``dt``,
+    the zone count, each sensor's zone and type, each sample line's
+    capacity and its delays' tensor by identity and ``_version`` (an
+    in-place change of the delays makes another key). Never the delays'
+    values: reading them is a copy from the card. ``(None, ())`` where a
+    delay tensor cannot be keyed (not a tensor, or an inference tensor,
+    which keeps no version)."""
+    key, tensors = [float(dt), params.reactor.n_zones], []
+    for _, attr, _ in SENSORS:
+        sp = getattr(params, attr)
+        key += [getattr(sp, "zone_index", 0), getattr(sp, "sensor_type", None)]
+        if attr in _LINE_ATTRS:
+            key.append(sp.base.line_capacity)
+            if sp.base.line_capacity > 0:
+                delay = sp.base.line_delay_s
+                if not isinstance(delay, torch.Tensor) or delay.is_inference():
+                    return None, ()
+                key += [id(delay), delay._version]
+                tensors.append(delay)
+    return tuple(key), tuple(tensors)
+
+
 @spanned("wt.b3.statics")
 def sensor_statics(params, dt: float):
     """Per sensor ``(attr, normalized zone, sensor type, d_static, d_max)``:
     what is uniform over the batch and fixes the kernel's shape. ``d_static``
     is the line's delay in steps when all plants share it, else None (kept
     so that the tuple equals the JAX package's; the kernel reads each
-    plant's own delay either way); ``d_max`` the batch's largest."""
+    plant's own delay either way); ``d_max`` the batch's largest.
+
+    The delays are read on the host once per parameter set and ``dt``
+    (``_STATICS``, counted in ``STATICS_CACHE``): a wrapper that read them
+    every call would wait there for the kernel in flight."""
+    key, tensors = _statics_key(params, dt)
+    entry = _STATICS.get(key) if key is not None else None
+    if entry is not None and all(
+            ref() is t for ref, t in zip(entry[0], tensors)):
+        STATICS_CACHE["hits"] += 1
+        return entry[1]
+    STATICS_CACHE["misses"] += 1
+    statics = _sensor_statics(params, dt)
+    if key is not None:
+        if len(_STATICS) >= _STATICS_MAX:
+            _STATICS.clear()
+        _STATICS[key] = (tuple(weakref.ref(t) for t in tensors), statics)
+    return statics
+
+
+def _sensor_statics(params, dt: float):
     z = params.reactor.n_zones
     statics = []
     for _, attr, kind in SENSORS:
@@ -575,7 +631,7 @@ def plant_schedule_table(schedule: R.BoundaryConditions, n_steps: int,
     for every step and plant."""
     cols = []
     for name in F.BOUNDARY_FIELDS:
-        x = torch.as_tensor(getattr(schedule, name), device=device).to(dtype)
+        x = F.on_device(getattr(schedule, name), device).to(dtype)
         x = x.reshape(tuple(x.shape) + (1,) * (2 - x.ndim))
         cols.append(x.expand(n_steps, batch))
     return torch.stack(cols, dim=1).contiguous()
@@ -618,8 +674,7 @@ def _leaf(obj, sub, field):
 
 
 def _column(x, batch, dtype, device):
-    return torch.as_tensor(x, device=device).to(dtype).reshape(-1) \
-        .expand(batch)
+    return F.on_device(x, device).to(dtype).reshape(-1).expand(batch)
 
 
 @spanned("wt.b3.tables")
@@ -995,12 +1050,19 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
 
     lib = _build.load("fused_plant")
     n_rec = n_steps // record_every
+    # the histories start as copies of the lead-ins, made by one kernel
+    # into one buffer (a clone each is four cudaMemcpy calls a launch); the
+    # kernel indexes them by element, so any offset in the buffer will do
+    sizes = [x.numel() for x in tables.lead]
+    hist = [h.view(x.shape) for h, x in zip(
+        torch.cat([x.reshape(-1) for x in tables.lead]).split(sizes),
+        tables.lead)]
     out = PlantResult(
         ph=torch.empty_like(ph), cl=torch.empty_like(ph),
         t=torch.empty_like(ph), time=torch.empty_like(tables.time),
         carry_float=torch.empty_like(tables.carry_float),
         carry_int=torch.empty_like(tables.carry_int),
-        hist=[x.clone() for x in tables.lead],
+        hist=hist,
         readings=torch.empty((n_rec, len(SENSORS), batch), dtype=dtype,
                              device=device),
         faults=torch.empty((n_rec, len(SENSORS), batch), dtype=torch.int32,

@@ -31,7 +31,8 @@ Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (a direct transcription of the reference kernel's
 ``_make_deriv``, ``_make_stepper`` and ``_bound`` on ``[B, Z]`` tensors), a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches by kernel name.
+launches by kernel name. On the card the wrappers only enqueue work
+(``on_device``): no call waits for the kernel already in flight.
 """
 
 from __future__ import annotations
@@ -228,12 +229,31 @@ def rollout_geometry(n_zones: int, batch: int) -> RolloutGeometry:
 # ---------------------------------------------------------------------------
 
 
+def on_device(x, device, dtype=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``, bit for bit,
+    without a blocking copy from the host: a tensor passes as
+    ``torch.as_tensor`` passes it; host data is made a tensor on the host
+    first (the same conversion), then a single value is filled on the
+    device (it travels as the fill's argument) and more values cross in
+    one pinned non-blocking copy. So a wrapper that builds its tables from
+    Python numbers never waits for the kernel already in flight."""
+    if isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    host = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if host.numel() == 1:
+        return torch.full(host.shape, host.item(), dtype=host.dtype,
+                          device=device)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
 def _column(x, batch, dtype, device):
     # a Python float goes through NumPy so that it stays float64 until the
     # cast to ``dtype`` (torch.as_tensor would make it float32 first)
-    return torch.as_tensor(
-        np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-        device=device).to(dtype).expand(batch)
+    return on_device(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
+                     device).to(dtype).expand(batch)
 
 
 def param_table(params: R.ReactorParams, batch: int, dtype,
@@ -576,7 +596,7 @@ def _prepare(params, state):
         raise ValueError(f"unsupported device {device}")
 
     def prep(x):
-        x = torch.as_tensor(x, device=device).to(dtype)
+        x = on_device(x, device).to(dtype)
         return (x[None, :] if single else x).contiguous()
 
     states = (prep(state.pH), prep(state.chlorine), prep(state.temperature))
@@ -593,8 +613,7 @@ def _finish(state, single, outs, total_flow, dt, n_steps, record_every):
     new_state = R.ReactorState(
         time=state.time + dt * n_steps,
         pH=unprep(ph_f), chlorine=unprep(cl_f), temperature=unprep(t_f),
-        flow_rate=torch.as_tensor(total_flow, dtype=dtype,
-                                  device=ph_f.device)
+        flow_rate=on_device(total_flow, ph_f.device, dtype)
         + torch.zeros_like(torch.as_tensor(state.flow_rate)),
     )
     new_state = R._update_derived(new_state)

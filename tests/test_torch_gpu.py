@@ -849,22 +849,10 @@ def test_spans_leave_the_card_bit_equal_and_hold_the_launch(cuda):
                 P.plant_serve_chunk(*one, sched, dt=1.0, substeps=substeps,
                                     seed=3, step0=64))
 
-    def tensors(x):
-        if isinstance(x, torch.Tensor):
-            return [x]
-        if dataclasses.is_dataclass(x):
-            return [t for f in dataclasses.fields(x)
-                    for t in tensors(getattr(x, f.name))]
-        if isinstance(x, dict):
-            return [t for k in sorted(x) for t in tensors(x[k])]
-        if isinstance(x, (tuple, list)):
-            return [t for v in x for t in tensors(v)]
-        return []
-
-    off = tensors(both())
+    off = _tensors(both())
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         with PF.recording() as spans:
-            on = tensors(both())
+            on = _tensors(both())
         torch.cuda.synchronize(cuda)
     assert len(on) == len(off) > 20
     for a, b in zip(on, off):
@@ -879,3 +867,97 @@ def test_spans_leave_the_card_bit_equal_and_hold_the_launch(cuda):
     for (_, start, end, _, _), kernel in zip(launch, kernels):
         assert any(start <= t <= end for t in calls)
         assert start <= kernel.start_ns()
+
+
+def _tensors(x):
+    """Every tensor of a result, in a fixed order: dataclass fields, dict
+    keys sorted, tuple and list items."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        return [t for f in dataclasses.fields(x)
+                for t in _tensors(getattr(x, f.name))]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wrappers_make_no_host_sync_between_launches(cuda, dtype):
+    """After one warm call, the B3 and B1 wrappers only enqueue work: under
+    ``torch.cuda.set_sync_debug_mode("error")`` two chained
+    ``plant_rollout_fused`` calls on an instrumented batch (per-plant
+    delays; constant forcing, then a NumPy schedule), a served chunk
+    (``plant_serve_chunk``, shorter than the sample lines, so its rings are
+    joined with the ones before) up to its return, and two chained
+    ``rollout_fused`` calls raise nothing. Each output equals, bit for bit,
+    the same calls with the card synchronized between them."""
+    from ics_wt_physicsengine_torch import __main__ as M
+
+    cfg = R.ReactorConfiguration(n_zones=20)
+    substeps, _ = K.plant_plan(20, "rk4")
+    params, plant = K.plant_case(20, 8, dtype, cuda, delays=True)
+    one_params, one = P.make_plant(cfg, dtype=dtype, device=cuda)
+    sched, _ = M.build_chunk_schedule(
+        K.BC, dataclasses.replace(K.BC, acid_flow_rate=0.3), 16, K.DT,
+        30.0, device=cuda)
+    mc, state = make_monte_carlo_batch(cfg, 16, seed=2, dtype=dtype,
+                                       device=cuda)
+
+    def b3(p, k, boundary=K.BC):
+        return FP.plant_rollout_fused(params, p, boundary, dt=K.DT,
+                                      substeps=substeps, n_steps=40,
+                                      record_every=8, seed=3, step0=40 * k)
+
+    def served(p, k):
+        return P.plant_serve_chunk(one_params, p, sched, dt=K.DT,
+                                   substeps=substeps, seed=3, step0=16 * k)
+
+    def b1(s):
+        return F.rollout_fused(mc, s, K.BC, dt=K.DT, substeps=substeps,
+                               n_steps=40)
+
+    warm, chunk, s0 = b3(plant, 0), served(one, 0), b1(state)
+    torch.cuda.synchronize(cuda)
+
+    def chained(between):
+        a = b3(warm[0], 1)
+        between()
+        b = b3(a[0], 2, K.bench_schedule(40))
+        between()
+        c = served(chunk.plant, 1)
+        between()
+        d = b1(s0)
+        between()
+        return a, b, c, d, b1(d)
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _tensors(chained(lambda: None))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = _tensors(chained(lambda: torch.cuda.synchronize(cuda)))
+    assert len(got) == len(want) > 40
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_b3_histories_start_as_copies_of_the_lead_in(cuda, dtype):
+    """B3 writes its sample-line histories into copies of the tables'
+    lead-ins, never into the tables: the leads are unchanged after the
+    launch, and the written-back histories equal the plain version's."""
+    substeps, _ = K.plant_plan(20, "rk4")
+    params, plant = K.plant_case(20, 8, dtype, cuda, delays=True)
+    tables = FP.build_tables(params, plant, K.BC, dt=K.DT, n_steps=24)
+    leads = [x.clone() for x in tables.lead]
+    kw = dict(dt=K.DT, substeps=substeps, n_steps=24, record_every=8,
+              seed=3)
+    got = FP.plant_kernel(tables, **kw)
+    want = FP.plant_plain(tables, **kw)
+    for a, b in zip(tables.lead, leads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(got.hist, want.hist):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
