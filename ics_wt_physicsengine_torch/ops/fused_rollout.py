@@ -31,8 +31,9 @@ Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (a direct transcription of the reference kernel's
 ``_make_deriv``, ``_make_stepper`` and ``_bound`` on ``[B, Z]`` tensors), a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches by kernel name. On the card the wrappers only enqueue work
-(``on_device``): no call waits for the kernel already in flight.
+launches by kernel name, ``EVALUATIONS`` the derivative evaluations those
+launches ask for (``evaluations``). On the card the wrappers only enqueue
+work (``on_device``): no call waits for the kernel already in flight.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ BOUNDARY_FIELDS = (
 )
 
 LAUNCHES = {"rollout_fused": 0, "rollout_scheduled_fused": 0}
+EVALUATIONS = dict(LAUNCHES)
 
 # Operations per zone per derivative evaluation, counted from
 # csrc/fused_rollout.cuh::deriv for an interior zone (each add, subtract,
@@ -100,9 +102,17 @@ def rollout_ops(batch: int, n_zones: int, n_steps: int, substeps: int,
     return batch * n_zones * n_steps * (substeps * per_substep + BOUND_OPS)
 
 
+def evaluations(batch: int, n_steps: int, substeps: int,
+                stages: Optional[int]) -> int:
+    """Derivative evaluations a rollout of these sizes asks for, counted
+    once a plant (each of its zones evaluates as often): four a substep for
+    RK4 (``stages`` None), ``stages`` for RKC2."""
+    return batch * n_steps * substeps * (4 if stages is None else stages)
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = EVALUATIONS[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +531,10 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
     traj = [torch.empty((n_steps // k, batch, n_zones), dtype=dtype,
                         device=ph.device) for _ in range(3)] if k else []
     h_step = dt / substeps
-    rkc = _rkc_host_table(stages, h_step) if stages is not None else None
+    rkc = None
+    if stages is not None:
+        with span("wt.b1.rkc_table"):
+            rkc = _rkc_host_table(stages, h_step)
     g = rollout_geometry(n_zones, batch)
     fn = lib.wt_rollout_scheduled if name == "rollout_scheduled_fused" \
         else lib.wt_rollout_fused
@@ -541,6 +554,7 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.wt_error_string(err).decode()}")
     LAUNCHES[name] += 1
+    EVALUATIONS[name] += evaluations(batch, n_steps, substeps, stages)
     return (*outs, tuple(traj) if k else None)
 
 

@@ -869,6 +869,56 @@ def test_spans_leave_the_card_bit_equal_and_hold_the_launch(cuda):
         assert start <= kernel.start_ns()
 
 
+def test_b1_rkc_table_span_and_evaluation_count(cuda):
+    """B1's RKC2 coefficient fold on the card: an RKC call records
+    ``wt.b1.rkc_table`` inside ``wt.b1.launch`` and an RK4 call the same
+    three spans as before, none inside its launch; B2's fold is the same
+    span; ``EVALUATIONS`` advances by ``evaluations``'s count of each
+    launch; RKC and RK4 outputs are bit-equal with spans on and off."""
+    from ics_wt_physicsengine_torch.utils import profiling as PF
+
+    cfg = R.ReactorConfiguration(n_zones=20)
+    params, state = make_monte_carlo_batch(cfg, 64, seed=4,
+                                           dtype=torch.float32, device=cuda)
+    sched = R.BoundaryConditions(inlet_pH=np.full(30, 7.2))
+
+    def calls():
+        return (F.rollout_fused(params, state, K.BC, dt=K.DT, substeps=1,
+                                stages=4, n_steps=50),
+                F.rollout_fused(params, state, K.BC, dt=K.DT, substeps=3,
+                                n_steps=50),
+                F.rollout_scheduled_fused(params, state, sched, dt=K.DT,
+                                          substeps=1, stages=4))
+
+    F.reset_launch_counts()
+    off = _tensors(calls())
+    torch.cuda.synchronize(cuda)
+    want = {"rollout_fused": F.evaluations(64, 50, 1, 4)
+            + F.evaluations(64, 50, 3, None),
+            "rollout_scheduled_fused": F.evaluations(64, 30, 1, 4)}
+    assert F.EVALUATIONS == want
+    assert want["rollout_fused"] == 64 * 50 * (4 + 12)
+    with PF.recording() as spans:
+        on = _tensors(calls())
+    torch.cuda.synchronize(cuda)
+    assert F.EVALUATIONS == {k: 2 * v for k, v in want.items()}
+    assert F.LAUNCHES == {"rollout_fused": 4, "rollout_scheduled_fused": 2}
+    assert len(on) == len(off) > 10
+    for a, b in zip(on, off):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    named = [(s[0], spans[s[3]][0] if s[3] >= 0 else None) for s in spans]
+    assert named == [
+        ("wt.b1.wrapper", None), ("wt.b1.tables", "wt.b1.wrapper"),
+        ("wt.b1.launch", "wt.b1.wrapper"),
+        ("wt.b1.rkc_table", "wt.b1.launch"),
+        ("wt.b1.wrapper", None), ("wt.b1.tables", "wt.b1.wrapper"),
+        ("wt.b1.launch", "wt.b1.wrapper"),
+        ("wt.b1.rkc_table", None)]
+    assert spans.dropped == 0
+    launch, table = spans[2], spans[3]
+    assert launch[1] <= table[1] <= table[2] <= launch[2]
+
+
 def _tensors(x):
     """Every tensor of a result, in a fixed order: dataclass fields, dict
     keys sorted, tuple and list items."""
