@@ -252,7 +252,7 @@ __device__ __forceinline__ void physics_role(
   const int pl = plant < batch ? plant : batch - 1;
   const int64_t idx = static_cast<int64_t>(pl) * n_zones + zone;
 
-  const Plant<S> p = load_plant(a.params, pl, batch);
+  Plant<S> p = load_plant(a.params, pl, batch);
   Sources<S> b;
   if (!a.scheduled) {
     b = boundary_terms(p, [&](int c) { return a.forcing[c * batch + pl]; });
@@ -260,6 +260,9 @@ __device__ __forceinline__ void physics_role(
   Exchange<S, PhysicsBarrier> x{exchange_buf, tid, zone,
                                 real ? n_zones : 1, 0,
                                 PhysicsBarrier{a.physics_threads}};
+  // the division path is uniform over the physics warps; a fallback counts
+  // the block
+  settle_division(p, x, tid == 0);
 
   S ph = a.ph0[idx], cl = a.cl0[idx], t = a.t0[idx];
   S time = a.time_in[pl];
@@ -658,6 +661,21 @@ int wt_philox_words(unsigned long long seed, int n_steps, int batch,
 
 const char* wt_plant_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The float32 blocks of B3 launches that took the IEEE divisions
+// (fused_rollout.cuh: settle_division) on the current device, into
+// ``out``; zeroed by wt_plant_reset_division_fallbacks. Both wait for the
+// device.
+int wt_plant_division_fallbacks(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, wt::division_fallbacks, sizeof(*out)));
+}
+
+int wt_plant_reset_division_fallbacks() {
+  const unsigned long long zero = 0;
+  return static_cast<int>(
+      cudaMemcpyToSymbol(wt::division_fallbacks, &zero, sizeof(zero)));
 }
 
 }  // extern "C"

@@ -11,15 +11,18 @@
 // What bounds them: the work is arithmetic on registers and the state
 // moves once per launch. An evaluation is ~400 instructions for the 83
 // operations counted (ops/fused_rollout.py: DERIV_OPS): no FMA contraction,
-// and eight or nine IEEE divisions, each its own branch region around the
-// call to the division's slow path, which the compiler does not overlap
-// (~50 cycles each on the chain). A full card (MC-4096, MC-32768) is bound
-// by issue slots; a batch that leaves the schedulers few warps (one plant,
-// SCHED-1) by the latency of each plant's chain of evaluations, about 800
-// cycles each (tools/torch_rollout_probe.py). A zero dividend sent a
-// division down its slow path (~220 cycles more): the interface rate of two
-// equal densities, the source terms of zero flows; fused_rollout.cuh's
-// div_rn and k_iface keep those quotients off it with the same results.
+// and eight or nine divisions. As IEEE ``/`` each is its own branch region
+// around the call to the division's slow path, which the compiler does not
+// overlap (~50 cycles each on the chain); a float32 plant whose parameters
+// lie in fused_rollout.cuh's windows divides by div_fast instead, the same
+// quotients with no check and no branch, one uniform branch an evaluation
+// choosing between the two. A full card (MC-4096, MC-32768) is bound by
+// issue slots; a batch that leaves the schedulers few warps (one plant,
+// SCHED-1) by the latency of each plant's chain of evaluations
+// (tools/torch_rollout_probe.py). A zero dividend sends an IEEE division
+// down its slow path (~220 cycles more): the interface rate of two equal
+// densities, the source terms of zero flows; fused_rollout.cuh's div_rn and
+// k_iface keep those quotients off it with the same results.
 //
 // Design: one thread holds one (plant, zone) in registers for the whole
 // run, and the launch geometry comes from the host
@@ -132,7 +135,7 @@ rollout_kernel(const __grid_constant__ RolloutArgs<S> a) {
   const int pl = c.plant < batch ? c.plant : batch - 1;
   const int64_t idx = static_cast<int64_t>(pl) * n_zones + c.zone;
 
-  const Plant<S> p = load_plant(a.params, pl, batch);
+  Plant<S> p = load_plant(a.params, pl, batch);
   Sources<S> b{};
   S row_next[kBoundaryCols];
   if (!kScheduled) {
@@ -169,12 +172,16 @@ rollout_kernel(const __grid_constant__ RolloutArgs<S> a) {
       }
     }
   };
+  // the division path is uniform over a warp (warp layout; a fallback
+  // counts each of its plants) or a block (packed; counts the block)
   if constexpr (kLayout == kWarp) {
     WarpExchange<S> x{c.zone, c.n_zones};
+    settle_division(p, x, active && c.zone == 0);
     run(x);
   } else {
     __shared__ S exchange_buf[2][4][kThreadsPerBlock];
     Exchange<S> x{exchange_buf, tid, c.zone, c.n_zones, 0};
+    settle_division(p, x, tid == 0);
     run(x);
   }
   if (active) {
@@ -321,6 +328,21 @@ int wt_rollout_scheduled(int is_double, const void* params,
 
 const char* wt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The float32 plants (warp layout) and blocks (packed layout) of B1 and B2
+// launches that took the IEEE divisions (fused_rollout.cuh:
+// settle_division) on the current device, into ``out``; zeroed by
+// wt_reset_division_fallbacks. Both wait for the device.
+int wt_division_fallbacks(unsigned long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, wt::division_fallbacks, sizeof(*out)));
+}
+
+int wt_reset_division_fallbacks() {
+  const unsigned long long zero = 0;
+  return static_cast<int>(
+      cudaMemcpyToSymbol(wt::division_fallbacks, &zero, sizeof(zero)));
 }
 
 }  // extern "C"

@@ -116,6 +116,58 @@ def use(libs: dict) -> None:
     _libs.update(libs)
 
 
+def division_fallbacks(name: str, devices) -> int:
+    """The device counter of float32 evaluations that took the IEEE
+    divisions (csrc/fused_rollout.cuh: settle_division) in library ``name``
+    ("fused_rollout" or "fused_plant"), summed over ``devices`` (the card
+    indices it launched on). Synchronizes each card first. Raises without
+    a CUDA card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("division_fallbacks needs a CUDA card: the "
+                           "counter lives on the device")
+    read, _ = _counter(load(name), name)
+    total = 0
+    for index in sorted(devices):
+        with torch.cuda.device(index):
+            torch.cuda.synchronize()
+            out = ctypes.c_ulonglong(0)
+            err = read(ctypes.byref(out))
+            if err != 0:
+                raise RuntimeError(f"{name}: reading the division counter "
+                                   f"failed ({err})")
+            total += out.value
+    return total
+
+
+def reset_division_fallbacks(name: str, devices) -> None:
+    """Zero library ``name``'s division counter on ``devices`` and forget
+    them. Nothing to do (and no card needed) where no launch ran."""
+    if devices and name in _libs:
+        import torch
+
+        _, reset = _counter(_libs[name], name)
+        for index in sorted(devices):
+            with torch.cuda.device(index):
+                err = reset()
+                if err != 0:
+                    raise RuntimeError(f"{name}: zeroing the division "
+                                       f"counter failed ({err})")
+    devices.clear()
+
+
+def _counter(lib, name: str):
+    """The counter's read and reset functions of ``lib``, declared here
+    rather than in ``bind`` so that builds without them still bind."""
+    prefix = "wt_plant_" if name == "fused_plant" else "wt_"
+    read = getattr(lib, f"{prefix}division_fallbacks")
+    reset = getattr(lib, f"{prefix}reset_division_fallbacks")
+    read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+    reset.argtypes, reset.restype = [], ctypes.c_int
+    return read, reset
+
+
 def bind(name: str, path: Path):
     """Load library ``name`` at ``path`` and declare its C interface."""
     lib = ctypes.CDLL(str(path))

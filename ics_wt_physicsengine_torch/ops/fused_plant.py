@@ -65,7 +65,9 @@ Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (the same algorithm as a Python loop over steps on
 ``[B]``/``[B, Z]`` tensors, calling the ``sensors`` package's read
 functions), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts kernel launches.
+counts kernel launches; ``division_fallbacks()`` reads B3's own count of
+float32 blocks that took the IEEE divisions
+(``fused_rollout.DIVISION_PARAM_WINDOWS``).
 
 On the card the wrapper only enqueues work: once ``sensor_statics`` has
 seen a parameter set and ``dt`` (``STATICS_CACHE`` counts its hits and
@@ -205,6 +207,9 @@ TYPE_CODES = {
 }
 
 LAUNCHES = {"plant_rollout_fused": 0}
+# The cards this process launched B3 on since the last reset (as
+# fused_rollout._DIVISION_DEVICES).
+_DIVISION_DEVICES: set = set()
 
 # Operations per plant per step of the sensor phase, counted from
 # csrc/sensors.cuh (each add, subtract, multiply, divide, compare-select,
@@ -322,8 +327,22 @@ def plant_geometry(n_zones: int, batch: int) -> PlantGeometry:
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES`` and, on the cards launched on, B3's division
+    counter."""
+    from ics_wt_physicsengine_torch.ops import _build
+
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    _build.reset_division_fallbacks("fused_plant", _DIVISION_DEVICES)
+
+
+def division_fallbacks() -> int:
+    """Float32 blocks of B3 launches since ``reset_launch_counts`` that took
+    the IEEE divisions. Waits for the cards, so never on a wrapper's path;
+    raises without a CUDA card."""
+    from ics_wt_physicsengine_torch.ops import _build
+
+    return _build.division_fallbacks("fused_plant", _DIVISION_DEVICES)
 
 
 # ---------------------------------------------------------------------------
@@ -1097,6 +1116,7 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.wt_plant_error_string(err).decode()}")
     LAUNCHES[name] += 1
+    _DIVISION_DEVICES.add(tables.ph.get_device())
     return out
 
 

@@ -32,8 +32,10 @@ runs the plain version (a direct transcription of the reference kernel's
 ``_make_deriv``, ``_make_stepper`` and ``_bound`` on ``[B, Z]`` tensors), a
 CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
 launches by kernel name, ``EVALUATIONS`` the derivative evaluations those
-launches ask for (``evaluations``). On the card the wrappers only enqueue
-work (``on_device``): no call waits for the kernel already in flight.
+launches ask for (``evaluations``), and ``division_fallbacks()`` reads
+the kernels' own count of float32 plants that took the IEEE divisions
+(``DIVISION_PARAM_WINDOWS``). On the card the wrappers only enqueue work
+(``on_device``): no call waits for the kernel already in flight.
 """
 
 from __future__ import annotations
@@ -75,6 +77,21 @@ BOUNDARY_FIELDS = (
 
 LAUNCHES = {"rollout_fused": 0, "rollout_scheduled_fused": 0}
 EVALUATIONS = dict(LAUNCHES)
+# The cards this process launched B1 or B2 on since the last reset: where
+# ``division_fallbacks`` reads the kernels' counter and
+# ``reset_launch_counts`` zeroes it.
+_DIVISION_DEVICES: set = set()
+
+# csrc/fused_rollout.cuh: div_fast is exact for operands and quotients in
+# [2^-DIVISION_WINDOW_EXP, 2^DIVISION_WINDOW_EXP] (kDivWindowExp), and a
+# float32 plant divides by it when each of these parameters lies in its
+# window [2^lo, 2^hi], from +0 where lo is None (kDivFromZero). Any other
+# plant takes the IEEE divisions and counts in ``division_fallbacks``.
+DIVISION_WINDOW_EXP = 100
+DIVISION_PARAM_WINDOWS = {
+    "zone_height": (-30, 30), "safe_u2": (-50, 30), "ka1": (-40, 4),
+    "ka1ka2": (-90, 4), "kw": (-90, 4), "ct2303": (None, 40),
+    "ka_hocl": (None, 40)}
 
 # Operations per zone per derivative evaluation, counted from
 # csrc/fused_rollout.cuh::deriv for an interior zone (each add, subtract,
@@ -111,8 +128,23 @@ def evaluations(batch: int, n_steps: int, substeps: int,
 
 
 def reset_launch_counts() -> None:
+    """Zero ``LAUNCHES``, ``EVALUATIONS`` and, on the cards launched on,
+    the kernels' division counter."""
+    from ics_wt_physicsengine_torch.ops import _build
+
     for name in LAUNCHES:
         LAUNCHES[name] = EVALUATIONS[name] = 0
+    _build.reset_division_fallbacks("fused_rollout", _DIVISION_DEVICES)
+
+
+def division_fallbacks() -> int:
+    """Float32 plants (warp layout) and blocks (packed layout) of B1 and B2
+    launches since ``reset_launch_counts`` that took the IEEE divisions.
+    Waits for the cards, so never on a wrapper's path; raises without a
+    CUDA card."""
+    from ics_wt_physicsengine_torch.ops import _build
+
+    return _build.division_fallbacks("fused_rollout", _DIVISION_DEVICES)
 
 
 # ---------------------------------------------------------------------------
@@ -555,6 +587,7 @@ def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
                            f"{lib.wt_error_string(err).decode()}")
     LAUNCHES[name] += 1
     EVALUATIONS[name] += evaluations(batch, n_steps, substeps, stages)
+    _DIVISION_DEVICES.add(ph.get_device())
     return (*outs, tuple(traj) if k else None)
 
 

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""Kernels B1, B2 and B3 of an earlier commit beside the current ones, in
-one call on one CUDA card.
+"""Kernels B1, B2 and B3 of an earlier commit, or with one part of their
+design taken out, beside the current ones, in one call on one CUDA card.
 
     mkdir -p dist/probe/old
     git archive 41a20d1 ics_wt_physicsengine_torch/csrc \\
         | tar -x -C dist/probe/old
     python3 tools/torch_rollout_compare.py \\
         dist/probe/old/ics_wt_physicsengine_torch/csrc [--variant]
+    python3 tools/torch_rollout_compare.py --ablate
 
-The argument is a csrc directory whose ``fused_rollout.cu`` has the C
-interface of commit 41a20d1 (no geometry arguments: 256 / Z plants a
+The optional argument is a csrc directory whose ``fused_rollout.cu`` has
+the C interface of commit 41a20d1 (no geometry arguments: 256 / Z plants a
 block) and whose ``fused_plant.cu`` has the current one. Both libraries are
 built from there and from the current sources at once (one nvcc process
 per source), and each build's -Xptxas -v registers and spills are printed.
 
-Then, in float32, each cell with the builds in turns (old, new, then
-reversed, after a warm-up of each; two launches a turn), their mean
-CUDA-event times, and whether every build's result is bit-equal to the old
-one's: B1 at MC-4096 x 7200 and MC-32768 x 2000 (RK4 3 x 4, RKC-fast
-1 x 4, ``make_monte_carlo_batch(seed=0)``, chip_smoke.py's dosing policy),
-B2 at SCHED-1 x 32768 (RKC-fast, the bench schedule), B3 at PLANT-4096 x
-2000 (RK4, recorded every 100) and PLANT-1 x 16384 (RK4, RKC-fast; Philox).
+Then, in float32, each cell with the builds in turns (the first, the
+others, then reversed, after a warm-up of each; two launches a turn), their
+mean CUDA-event times, and whether every build's result is bit-equal to the
+first one's (the old build, or else the current one): B1 at MC-4096 x 7200
+and MC-32768 x 2000 (RK4 3 x 4, RKC-fast 1 x 4,
+``make_monte_carlo_batch(seed=0)``, chip_smoke.py's dosing policy), B2 at
+SCHED-1 x 32768 (RKC-fast, the bench schedule), B3 at PLANT-4096 x 2000
+(RK4, recorded every 100) and PLANT-1 x 16384 (RK4, RKC-fast; Philox).
 ``--variant`` adds, for B1/B2, the current build in the layout that
 ``rollout_geometry`` does not pick ("new-packed" or "new-warp"; cells whose
-zones do not fit a warp have none). ``--ablate`` builds three copies of
-the current sources, each with one part of the design taken out (string
-replacements in ``ABLATIONS``), and times their B1/B2 beside the shipped
-build at MC-4096 and SCHED-1. ``--sweep`` then times the current B1
+zones do not fit a warp have none). ``--ablate`` builds copies of the
+current sources, each with one part of the design taken out (string
+replacements), and times them beside the shipped build: those of
+``DIVISION_ABLATIONS`` (every evaluation through the IEEE divisions,
+"ieee-divisions", the build before the window check; every one through
+``div_fast`` with no check, "unchecked-divisions", the ceiling) in every
+cell, B1, B2 and B3; those of ``ABLATIONS`` at MC-4096 RK4 and SCHED-1.
+``--sweep`` then times the current B1
 in both layouts, in turns, at RK4 3 x 4 over batches of 20-zone plants
 from 1 to 4096 (1000 steps) and over zone counts that fit a warp at 4096
 and 32768 plants: the numbers ``rollout_geometry``'s rule rests on. Prints the card's name and power limit;
@@ -77,9 +83,10 @@ ABLATIONS = {
     # the warp layout computes both interface rates in every zone
     "k-iface-twice": [
         ("fused_rollout.cuh",
-         "    const S k_dn = __shfl_up_sync(kFullWarp, k_up, 1);",
-         "    const S k_dn = k_iface(p, __shfl_up_sync(kFullWarp, rho, 1),"
-         " rho);"),
+         "    const S k_dn = __shfl_up_sync(kFullWarp, q.k_up, 1);",
+         "    const S rho_dn = __shfl_up_sync(kFullWarp, rho, 1);\n"
+         "    const S k_dn = p.fast_div ? k_iface<true>(p, rho_dn, rho)\n"
+         "                              : k_iface<false>(p, rho_dn, rho);"),
     ],
     # zero dividends take the IEEE division's slow path again
     "zero-slow-path": [
@@ -91,6 +98,16 @@ ABLATIONS = {
          "  const bool flat = false;"),
         ("fused_rollout.cuh", "opaque(flat ? S(1.0) : num)", "num"),
     ],
+}
+# Every evaluation through one kind of division, whatever the plant: IEEE
+# ``/`` (the shipped build before the window check), or div_fast with no
+# check and no branch (the ceiling of the check).
+_CHOICE = "    if (p.fast_div) {\n      return quotients_of"
+DIVISION_ABLATIONS = {
+    "ieee-divisions": [("fused_rollout.cuh", _CHOICE,
+                        _CHOICE.replace("p.fast_div", "false"))],
+    "unchecked-divisions": [("fused_rollout.cuh", _CHOICE,
+                             _CHOICE.replace("p.fast_div", "true"))],
 }
 
 
@@ -183,7 +200,7 @@ def sweep(F, K, dev) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("old", type=Path)
+    parser.add_argument("old", type=Path, nargs="?")
     parser.add_argument("--variant", action="store_true")
     parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--ablate", action="store_true")
@@ -211,20 +228,24 @@ def main() -> int:
     probe = Path(ROOT) / "dist" / "probe"
     ablations = {
         name: ablated_sources(_build.CSRC, probe / "ablate" / name, edits)
-        for name, edits in (ABLATIONS.items() if args.ablate else ())}
+        for name, edits in ({**DIVISION_ABLATIONS, **ABLATIONS}.items()
+                            if args.ablate else ())}
     with ThreadPoolExecutor(2 + len(ablations)) as pool:
         new = pool.submit(_build.build)
-        ablated = {name: pool.submit(nvcc_build, src, ("fused_rollout",),
+        ablated = {name: pool.submit(nvcc_build, src, names,
                                      probe / "builds" / name,
                                      _build.NVCC_FLAGS)
                    for name, src in ablations.items()}
         old = nvcc_build(args.old, names, probe / "builds" / "old",
-                         _build.NVCC_FLAGS)
+                         _build.NVCC_FLAGS) if args.old else {}
         new_paths = new.result()
-        ablated = {name: f.result()["fused_rollout"][0]
-                   for name, f in ablated.items()}
-    logs = {"old": {n: old[n][1] for n in names},
-            "new": {n: _build.build_info[n]["log"] for n in names}}
+        ablated = {name: f.result() for name, f in ablated.items()}
+    logs = {"new": {n: _build.build_info[n]["log"] for n in names}}
+    if old:
+        logs["old"] = {n: old[n][1] for n in names}
+    logs.update({name: {n: built[n][1] for n in names}
+                 for name, built in ablated.items()
+                 if name in DIVISION_ABLATIONS})
     report = dict(card=card, torch=torch.__version__, reps=REPS,
                   registers={}, cells=[])
     for build, libs in logs.items():
@@ -234,17 +255,27 @@ def main() -> int:
             for kernel, regs, spills, stack in rows:
                 print(f"  {build:>4} {kernel[:64]:<64} {regs:4d} registers,"
                       f" {spills} bytes spilled, {stack} bytes stack")
-    old_rollout_lib = bind_old_rollout(old["fused_rollout"][0])
+    old_rollout_lib = bind_old_rollout(old["fused_rollout"][0]) if old \
+        else None
     rollout_libs = {"new": _build.bind("fused_rollout",
                                        new_paths["fused_rollout"])}
-    rollout_libs.update({name: _build.bind("fused_rollout", path)
-                         for name, path in ablated.items()})
-    plant_libs = {"old": _build.bind("fused_plant", old["fused_plant"][0]),
-                  "new": _build.bind("fused_plant", new_paths["fused_plant"])}
+    rollout_libs.update({name: _build.bind("fused_rollout",
+                                           built["fused_rollout"][0])
+                         for name, built in ablated.items()})
+    plant_libs = {"new": _build.bind("fused_plant", new_paths["fused_plant"])}
+    if old:
+        plant_libs = {"old": _build.bind("fused_plant",
+                                         old["fused_plant"][0]), **plant_libs}
+    plant_libs.update({name: _build.bind("fused_plant",
+                                         built["fused_plant"][0])
+                       for name, built in ablated.items()
+                       if name in DIVISION_ABLATIONS})
+    divisions = [name for name in ablated if name in DIVISION_ABLATIONS]
     _build.use({"fused_rollout": rollout_libs["new"],
                 "fused_plant": plant_libs["new"]})
 
     def in_turns(label, runs):
+        base = next(iter(runs))
         order = list(runs) + list(runs)[::-1]
         times = {name: [] for name in runs}
         results = {}
@@ -254,20 +285,22 @@ def main() -> int:
             ms, _ = timed(runs[name], REPS)
             times[name].append(ms)
         mean = {name: sum(v) / len(v) for name, v in times.items()}
-        if isinstance(results["old"], FP.PlantResult):
-            diffs = [K.plant_diff(results[name], results["old"])
-                     for name in runs if name != "old"]
+        if isinstance(results[base], FP.PlantResult):
+            diffs = [K.plant_diff(results[name], results[base])
+                     for name in runs if name != base]
             equal = all(d["max_abs_err"] == 0.0 and d["nan_equal"]
                         and d["ints_equal"] for d in diffs)
         else:
-            equal = all(torch.equal(a, b) for name in runs if name != "old"
+            equal = all(torch.equal(a, b) for name in runs if name != base
                         for a, b in zip(results[name][:3],
-                                        results["old"][:3]))
+                                        results[base][:3]))
         report["cells"].append(dict(cell=label, ms=mean, runs_ms=times,
-                                    equal_to_old=equal))
+                                    base=base, equal_to_base=equal))
         text = ", ".join(f"{name} {ms:.3f} ms" for name, ms in mean.items())
-        print(f"{label}: {text}; new / old {mean['new'] / mean['old']:.4f};"
-              f" bit-equal to old: {equal}", flush=True)
+        ratios = ", ".join(f"{name} / {base} {mean[name] / mean[base]:.4f}"
+                           for name in runs if name != base)
+        print(f"{label}: {text}; {ratios}; bit-equal to {base}: {equal}",
+              flush=True)
         return equal
 
     def with_geometry(make, fn):
@@ -295,12 +328,14 @@ def main() -> int:
         kernel = F.scheduled_kernel if scheduled else F.rollout_kernel
         new_kw = {k: v for k, v in kw.items()
                   if not (scheduled and k == "n_steps")}
-        runs = {"old": lambda: old_rollout(old_rollout_lib, scheduled, ptab,
-                                           forcing, *y, **kw),
-                "new": lambda: kernel(ptab, forcing, *y, **new_kw)}
-        if ablate:
-            runs.update({name: with_library(name, runs["new"])
-                         for name in ablated})
+        runs = {}
+        if old_rollout_lib is not None:
+            runs["old"] = lambda: old_rollout(old_rollout_lib, scheduled,
+                                              ptab, forcing, *y, **kw)
+        runs["new"] = lambda: kernel(ptab, forcing, *y, **new_kw)
+        runs.update({name: with_library(name, runs["new"])
+                     for name in ablated
+                     if name in divisions or ablate})
         batch, n_zones = y[0].shape
         if args.variant and n_zones <= F.WARP_SIZE:
             shipped = F.rollout_geometry(n_zones, batch).layout
@@ -363,6 +398,12 @@ def main() -> int:
             return go
         ok &= in_turns(label, {name: run(name) for name in plant_libs})
     _build.use({"fused_plant": plant_libs["new"]})
+    # the shipped builds' plants and blocks that took the IEEE divisions,
+    # over every cell above: none of their plants lies outside the windows
+    report["division_fallbacks"] = dict(b1_b2=F.division_fallbacks(),
+                                        b3=FP.division_fallbacks())
+    print(f"shipped builds, division fallbacks: "
+          f"{report['division_fallbacks']}", flush=True)
 
     if args.sweep:
         report["sweep"] = sweep(F, K, dev)

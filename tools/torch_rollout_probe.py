@@ -14,9 +14,12 @@ what the compiler made of it.
 2. Times B1 itself on the same plant (1 x 20, RK4, CUDA events) and
    converts to cycles per evaluation with the clock rate the probe's
    unstamped run shows (its cycles over its event time).
-3. Runs the one-warp evaluation with every division on its fast path
-   alone (no range check, no branch to the slow path; not what the kernels
-   do) and counts, over random operand pairs, where that fast path differs
+3. Runs the one-warp evaluation three ways: with IEEE divisions, with
+   every division by ``fused_rollout.cuh::div_fast`` and no check at all
+   (the ceiling), and as the kernels ship it (the header's ``deriv``: the
+   plant's window check, one uniform branch an evaluation); cycles per
+   evaluation of each and whether each plant's run is bit-equal to the
+   IEEE one. Counts, over random operand pairs, where ``div_fast`` differs
    from a / b; then times a dependent chain of IEEE divisions by dividend
    (one, 1e-14 and zero over the divisors the kernels see), plain and
    through ``fused_rollout.cuh::div_rn``.
@@ -143,12 +146,12 @@ def main() -> int:
     h_step = 1.0 / m
     report = dict(card=card, substeps=SUBSTEPS - WARM, probes={})
 
-    def probe(stamp, threads, fast=0, state=None):
+    def probe(stamp, threads, mode=0, state=None):
         out = torch.zeros((SUBSTEPS - WARM, len(PARTS)), dtype=torch.int64,
                           device=dev)
         state = torch.empty(3 * N_ZONES, device=dev) if state is None \
             else state
-        err = lib.wt_probe(stamp, fast, threads, ptab.data_ptr(),
+        err = lib.wt_probe(stamp, mode, threads, ptab.data_ptr(),
                            btab.data_ptr(),
                            ph.data_ptr(), cl.data_ptr(), t.data_ptr(),
                            N_ZONES, SUBSTEPS, WARM, PROBE_ZONE, h_step,
@@ -190,26 +193,30 @@ def main() -> int:
                           row["stamped_parts_per_evaluation"].items())
               + f"; sum {row['stamped_sum_per_evaluation']:.0f}", flush=True)
 
-    # the evaluation with every division on its fast path alone (no range
-    # check, no branch): what the branch regions cost, and whether the
-    # plant's run stays bit-equal
-    states = {fast: torch.empty(3 * N_ZONES, device=dev) for fast in (0, 1)}
+    # the evaluation with IEEE divisions (mode 0), with every division by
+    # div_fast and no check (1: the ceiling) and as shipped (2): what the
+    # branch regions cost, what the shipped check keeps of it, and whether
+    # the plant's run stays bit-equal
+    modes = {0: "IEEE", 1: "unchecked div_fast", 2: "shipped"}
+    states = {mode: torch.empty(3 * N_ZONES, device=dev) for mode in modes}
     fast_rows = {}
-    for fast in (0, 1):
-        whole = probe(0, 32, fast, states[fast])
+    for mode in modes:
+        probe(0, 32, mode, states[mode])                     # warm-up
+        whole = probe(0, 32, mode, states[mode])
         torch.cuda.synchronize()
-        fast_rows[fast] = float(whole[:, 0].double().median()) / 4
+        fast_rows[mode] = float(whole[:, 0].double().median()) / 4
     parts = probe(1, 32, 1).double().median(dim=0).values.tolist()
-    equal = torch.equal(states[0], states[1])
+    equal = {modes[m]: torch.equal(states[0], states[m]) for m in (1, 2)}
     report["fast_division"] = dict(
         evaluation_cycles=fast_rows[1], ieee_evaluation_cycles=fast_rows[0],
-        state_bit_equal=equal,
+        shipped_evaluation_cycles=fast_rows[2], state_bit_equal=equal,
         stamped_parts_per_evaluation={
             name: (c / 3 if k == 0 else c / 4)
             for k, (name, c) in enumerate(zip(PARTS, parts))})
-    print(f"fast-path divisions, 32 threads: {fast_rows[1]:.0f} cycles per "
-          f"evaluation against {fast_rows[0]:.0f} with IEEE divisions; "
-          f"state after {SUBSTEPS} substeps bit-equal: {equal}; stamped "
+    print("divisions, 32 threads, cycles per evaluation: "
+          + ", ".join(f"{modes[m]} {fast_rows[m]:.0f}" for m in modes)
+          + f"; state after {SUBSTEPS} substeps bit-equal to IEEE: {equal};"
+          " unchecked stamped "
           + ", ".join(f"{k} {v:.0f}" for k, v in report["fast_division"][
               "stamped_parts_per_evaluation"].items()), flush=True)
     lib.wt_div_check.argtypes = [ptr, ptr, ctypes.c_longlong, ptr, ptr]
@@ -234,7 +241,7 @@ def main() -> int:
             raise RuntimeError("division check launch failed")
         torch.cuda.synchronize()
         checks[label] = int(count[0])
-        print(f"fast path against a / b, {n_pairs} random pairs, {label}: "
+        print(f"div_fast against a / b, {n_pairs} random pairs, {label}: "
               f"{int(count[0])} differ", flush=True)
     report["fast_division"]["mismatches"] = checks
 
