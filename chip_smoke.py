@@ -577,9 +577,7 @@ def main() -> int:
         for name, case in K.B3_CASES.items():
             tol = K.TOL[case.get("dtype", f32)]
             got, d = K.b3_vs_plain(case, dev)
-            plant, readings = got[:2]
-            values = torch.stack([v.reshape(v.shape[0], -1)
-                                  for v in readings.values()])
+            plant, values = got[:2]
             nan_share = float(torch.isnan(values).double().mean())
             rows.append(dict(case=name, nan_share=nan_share, **d))
             if case.get("faults"):   # the serving chunk's case: bit-equal

@@ -33,6 +33,7 @@ import torch
 from ics_wt_physicsengine_torch.core import particles as PC
 from ics_wt_physicsengine_torch.core import reactor as R
 from ics_wt_physicsengine_torch.device import DEFAULT_DTYPE, resolve_device
+from ics_wt_physicsengine_torch.ops import fused_plant as FP
 from ics_wt_physicsengine_torch.sensors import ammonia as SA
 from ics_wt_physicsengine_torch.sensors import base as SB
 from ics_wt_physicsengine_torch.sensors import chlorine as SC
@@ -415,40 +416,6 @@ def _last_codes(params, plant: PlantState, fault, attr: str):
     return status.to(torch.int32)
 
 
-@spanned("wt.b3.rings")
-def _join_rings(old: SB.SensorCarry, new: SB.SensorCarry, window: int
-                ) -> SB.SensorCarry:
-    """The sample-line ring after a fused chunk, joined with the ring before
-    it: ``new`` holds the chunk's last ``k`` samples from slot 0 (the fused
-    kernel's ring rebuild keeps no more than the chunk's own); where ``k``
-    is short of ``window`` (the line's history, at most the ring), the
-    newest samples of ``old`` go in front of them, oldest first from slot 0,
-    so that the ring holds the last ``min(count + k, window)`` samples, as
-    one chunk of the two chunks' length would leave it."""
-    C = int(new.line_values.shape[-1])
-    k = new.line_count.to(torch.int64)
-    count = old.line_count.to(torch.int64)
-    keep = torch.clamp(count + k, max=window)
-    n_old = keep - k                                   # old samples kept
-    j = torch.arange(C, device=k.device)
-    lead = j < n_old[..., None]
-    old_slot = torch.remainder(old.line_ptr.to(torch.int64)[..., None]
-                               - n_old[..., None] + j, C)
-    new_slot = torch.clamp(j - n_old[..., None], 0, C - 1)
-
-    def join(o, x, empty):
-        v = torch.where(lead, torch.gather(o, -1, old_slot),
-                        torch.gather(x, -1, new_slot))
-        return torch.where(j < keep[..., None], v, empty)
-
-    return replace(
-        new,
-        line_values=join(old.line_values, new.line_values, 0.0),
-        line_times=join(old.line_times, new.line_times, -math.inf),
-        line_count=keep.to(new.line_count.dtype),
-        line_ptr=torch.remainder(keep, C).to(new.line_ptr.dtype))
-
-
 @spanned("wt.serve.chunk")
 def plant_serve_chunk(params: PlantParams, plant: PlantState,
                       schedule: R.BoundaryConditions, *, dt: float,
@@ -481,18 +448,16 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
     chunk-invariant).
 
     Sample lines: the chunk consumes the incoming rings and hands on rings
-    joined with them (``_join_rings``), so that chunks shorter than a
-    line's delay chain as one longer chunk would; a chunk from a plant
-    whose rings the ``plant_step`` loop filled keeps the fused kernel's
-    documented differences (``ops/fused_plant.py``).
+    joined with them (``ops.fused_plant._join_rings``), so that chunks
+    shorter than a line's delay chain as one longer chunk would; a chunk
+    from a plant whose rings the ``plant_step`` loop filled keeps the fused
+    kernel's documented differences (``ops/fused_plant.py``).
 
     The kernel records every ``gcd(n_steps, record_every)``-th step, so
     that its last row is the last step; the record returned is every
     ``record_every``-th of those. The last step's value is the carried last
     value, its fault code the kernel's, its status the carry's as
     ``_last_codes`` resolves it."""
-    from ics_wt_physicsengine_torch.ops import fused_plant as FP
-
     if record_every < 1:
         raise ValueError(f"record_every must be >= 1, got {record_every}")
     if rng not in ("philox", "bits") or (rng == "bits") != (bits is not None):
@@ -504,19 +469,8 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
             FP.table_runner(params, plant), params, plant, schedule, dt=dt,
             substeps=substeps, n_steps=n_steps, stages=stages,
             record_every=every, bits=bits, seed=seed,
-            consume_line=True, step0=step0, plant0=plant0,
-            record_faults=True)
-        for attr, _, _, _, d_max in FP.sensor_statics(params, dt):
-            old = getattr(plant, attr).base
-            if d_max > 0 and old.line_values is not None \
-                    and n_steps < min(d_max + 1, old.line_values.shape[-1]):
-                sensor = getattr(new_plant, attr)
-                setattr(new_plant, attr, replace(sensor, base=_join_rings(
-                    old, sensor.base, d_max + 1)))
+            consume_line=True, step0=step0, plant0=plant0, served=True)
         with span("wt.serve.codes"):
-            names = tuple(values)
-            values = torch.stack([values[n] for n in names], dim=1)
-            faults = torch.stack([faults[n] for n in names], dim=1)
             last = {}
             for k, (name, attr, _) in enumerate(FP.SENSORS):
                 fault = faults[-1, k]
@@ -524,7 +478,7 @@ def plant_serve_chunk(params: PlantParams, plant: PlantState,
                               _last_codes(params, new_plant, fault, attr),
                               fault)
         k = record_every // every
-        return ServeChunk(new_plant, names, values[k - 1::k],
+        return ServeChunk(new_plant, tuple(last), values[k - 1::k],
                           faults[k - 1::k], last)
 
     if bits is not None:
@@ -844,11 +798,9 @@ def plant_rollout_auto(params: PlantParams, plant: PlantState,
     ``record=False``). Randomness comes from ``seed``: the kernel's Philox
     stream, or a ``torch.Generator`` seeded with it on the loop path; the
     two are statistically, not bit-, identical."""
-    from ics_wt_physicsengine_torch.ops import fused_plant
-
     ph = plant.reactor.pH
-    if ph.is_cuda and fused_plant.unsupported_reason(params) is None:
-        new_plant, readings = fused_plant.plant_rollout_fused(
+    if ph.is_cuda and FP.unsupported_reason(params) is None:
+        new_plant, readings = FP.plant_rollout_fused(
             params, plant, boundary, dt=dt, substeps=substeps,
             n_steps=n_steps, stages=stages,
             record_every=1 if record else n_steps, seed=seed)

@@ -38,7 +38,9 @@ both directions. Differences from the exact ring, kept from the JAX
 package: the fused line records the true value every step, even while a
 sensor warms up or is power-faulted; exact-distance ties between an
 incoming and an in-rollout sample resolve by ring slot; a rollout shorter
-than a line's delay loses earlier history beyond the rebuilt window.
+than a line's delay loses earlier history beyond the rebuilt window. A
+served chunk (``_rollout_with(served=True)``) keeps it instead: its rebuilt
+ring is joined with the ring before it (``_join_rings``).
 
 Randomness: ``rng="philox"`` (production) is Philox4x32-10 keyed by the
 64-bit ``seed`` with counter (step0 + step, plant0 + plant, word block
@@ -87,7 +89,6 @@ import numpy as np
 import torch
 
 from ics_wt_physicsengine_torch.core import reactor as R
-from ics_wt_physicsengine_torch.models.plant import PlantState
 from ics_wt_physicsengine_torch.ops import fused_rollout as F
 from ics_wt_physicsengine_torch.sensors import base as SB
 from ics_wt_physicsengine_torch.sensors import chlorine as SC
@@ -256,11 +257,6 @@ def plant_bytes(batch: int, n_zones: int, n_steps: int, record_every: int,
 # kThreadsPerBlock, the size of the shared exchange buffers).
 MAX_BLOCK_THREADS = 448
 MAX_PHYSICS_THREADS = 256
-WARP = 32
-
-
-def _warps(threads: int) -> int:
-    return -(-threads // WARP)
 
 
 @dataclass(frozen=True)
@@ -277,7 +273,7 @@ class PlantGeometry:
 
     @property
     def sensor_threads(self) -> int:
-        return _warps(len(SENSORS) * self.sensor_stride) * WARP
+        return F._warps(len(SENSORS) * self.sensor_stride) * F.WARP_SIZE
 
     @property
     def block_threads(self) -> int:
@@ -312,18 +308,18 @@ def plant_geometry(n_zones: int, batch: int) -> PlantGeometry:
                          f"batch={batch}")
     best = None
     for plants in range(1, min(MAX_PHYSICS_THREADS // n_zones, batch) + 1):
-        warps = _warps(plants * n_zones) + _warps(len(SENSORS) * plants)
-        if warps * WARP > MAX_BLOCK_THREADS:
+        warps = F._warps(plants * n_zones) + F._warps(len(SENSORS) * plants)
+        if warps * F.WARP_SIZE > MAX_BLOCK_THREADS:
             continue
         key = (warps / plants, -plants)
         if best is None or key < best[0]:
             best = (key, plants)
     plants = best[1]
-    physics = _warps(plants * n_zones) * WARP
-    spread = len(SENSORS) * plants <= WARP \
-        and physics + len(SENSORS) * WARP <= MAX_BLOCK_THREADS
+    physics = F._warps(plants * n_zones) * F.WARP_SIZE
+    spread = len(SENSORS) * plants <= F.WARP_SIZE \
+        and physics + len(SENSORS) * F.WARP_SIZE <= MAX_BLOCK_THREADS
     return PlantGeometry(plants_per_block=plants, physics_threads=physics,
-                         sensor_stride=WARP if spread else plants)
+                         sensor_stride=F.WARP_SIZE if spread else plants)
 
 
 def reset_launch_counts() -> None:
@@ -450,7 +446,7 @@ def philox_words_kernel(seed: int, n_steps: int, batch: int,
 
 
 # ---------------------------------------------------------------------------
-# Sample-line lead-in and ring rebuild (host side)
+# Sample-line lead-in, ring rebuild and join (host side)
 # ---------------------------------------------------------------------------
 
 
@@ -477,15 +473,11 @@ def _resolve_lead_in(base_carry, delay_s, d_arr, d_max, t0, dt, batch,
         return nanfill
     lv = lv.expand(batch, C)
     lt = lt.expand(batch, C)
-
-    def per_plant(x, to):
-        return F.on_device(x, device).to(to).reshape(-1).expand(batch)
-
-    count = per_plant(base_carry.line_count, torch.int64)
-    ptr = per_plant(base_carry.line_ptr, torch.int64)
-    delay_s = per_plant(delay_s, dtype)
-    d_arr = per_plant(d_arr, torch.int64)
-    t0 = per_plant(t0, dtype)
+    count = F._column(base_carry.line_count, batch, torch.int64, device)
+    ptr = F._column(base_carry.line_ptr, batch, torch.int64, device)
+    delay_s = F._column(delay_s, batch, dtype, device)
+    d_arr = F._column(d_arr, batch, torch.int64, device)
+    t0 = F._column(t0, batch, dtype, device)
 
     g = torch.arange(d_max, device=device)[:, None]                # [d, 1]
     target = t0[None, :] + (g.to(dtype) + 1.0) * dt \
@@ -550,6 +542,39 @@ def _rebuild_rings(hist, old_carry, d_max: int, n_steps: int, t0, dt,
     ptr = torch.full(shape, k % C, dtype=torch.int32, device=device)
     return {"line_values": new_v, "line_times": new_t,
             "line_count": count, "line_ptr": ptr}
+
+
+@spanned("wt.b3.rings")
+def _join_rings(old_carry, new: dict, window: int) -> dict:
+    """A served chunk's ring (``_rebuild_rings``' fields ``new``, the
+    chunk's last ``k`` samples from slot 0) joined with the ring before
+    the chunk: where ``k`` is short of ``window`` (the line's history, at
+    most the ring), the newest samples of ``old_carry`` go in front of
+    them, oldest first from slot 0, so that the ring holds the last
+    ``min(count + k, window)`` samples, as one chunk of the two chunks'
+    length would leave it."""
+    C = int(new["line_values"].shape[-1])
+    k = new["line_count"].to(torch.int64)
+    count = old_carry.line_count.to(torch.int64)
+    keep = torch.clamp(count + k, max=window)
+    n_old = keep - k                                   # old samples kept
+    j = torch.arange(C, device=k.device)
+    lead = j < n_old[..., None]
+    old_slot = torch.remainder(old_carry.line_ptr.to(torch.int64)[..., None]
+                               - n_old[..., None] + j, C)
+    new_slot = torch.clamp(j - n_old[..., None], 0, C - 1)
+
+    def join(o, x, empty):
+        v = torch.where(lead, torch.gather(o, -1, old_slot),
+                        torch.gather(x, -1, new_slot))
+        return torch.where(j < keep[..., None], v, empty)
+
+    return {"line_values": join(old_carry.line_values, new["line_values"],
+                                0.0),
+            "line_times": join(old_carry.line_times, new["line_times"],
+                               -math.inf),
+            "line_count": keep.to(new["line_count"].dtype),
+            "line_ptr": torch.remainder(keep, C).to(new["line_ptr"].dtype)}
 
 
 # ``sensor_statics``' results by ``_statics_key``, each with weak references
@@ -692,10 +717,6 @@ def _leaf(obj, sub, field):
     return getattr(obj.base if sub == "base" else obj, field)
 
 
-def _column(x, batch, dtype, device):
-    return F.on_device(x, device).to(dtype).reshape(-1).expand(batch)
-
-
 @spanned("wt.b3.tables")
 def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
                  consume_line: bool = True) -> PlantTables:
@@ -738,16 +759,16 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
         return (x[None, :] if single else x).contiguous()
 
     sensor_params = torch.stack([
-        _column(_leaf(getattr(params, attr), sub, field), batch, dtype,
-                device)
+        F._column(_leaf(getattr(params, attr), sub, field), batch, dtype,
+                  device)
         for attr, sub, field in _PCOLS]).contiguous()
     carry_float = torch.stack([
-        _column(_leaf(getattr(plant, attr), sub, field), batch, dtype,
-                device)
+        F._column(_leaf(getattr(plant, attr), sub, field), batch, dtype,
+                  device)
         for attr, sub, field, _ in _FLOAT_CCOLS]).contiguous()
     carry_int = torch.stack([
-        _column(_leaf(getattr(plant, attr), sub, field), batch, torch.int32,
-                device)
+        F._column(_leaf(getattr(plant, attr), sub, field), batch,
+                  torch.int32, device)
         for attr, sub, field, _ in _INT_CCOLS]).contiguous()
 
     d_max_of = {attr: d_max for attr, _, _, _, d_max in statics}
@@ -760,7 +781,7 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
         # history the statics sized
         d_arr = torch.clamp(torch.round(ieee_div(delay, dt)), 0.0,
                             float(d_max)).to(torch.int32)
-        delay_steps.append(_column(d_arr, batch, torch.int32, device))
+        delay_steps.append(F._column(d_arr, batch, torch.int32, device))
         if consume_line and d_max > 0 and sp.line_capacity > 0:
             lead.append(_resolve_lead_in(
                 getattr(plant, attr).base, delay, d_arr, d_max, state.time,
@@ -1026,19 +1047,10 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
     name = "plant_rollout_fused"
     ph = tables.ph
     dtype, device = ph.dtype, ph.device
-    floats = (tables.ptab, tables.forcing, tables.sensor_params,
-              tables.carry_float, tables.ph, tables.cl, tables.t,
-              tables.time, *tables.lead)
-    ints = (tables.carry_int, tables.delay_steps)
-    if any(x.device.type != "cuda" for x in floats + ints):
-        raise ValueError(f"{name}: every input must be a CUDA tensor")
-    if dtype not in (torch.float32, torch.float64) \
-            or any(x.dtype != dtype for x in floats) \
-            or any(x.dtype != torch.int32 for x in ints):
-        raise ValueError(f"{name}: float inputs must all be float32 or all "
-                         "float64, integer inputs int32")
-    if any(not x.is_contiguous() for x in floats + ints):
-        raise ValueError(f"{name}: inputs must be contiguous")
+    F._check_launch(name, (ph, tables.ptab, tables.forcing,
+                           tables.sensor_params, tables.carry_float,
+                           tables.cl, tables.t, tables.time, *tables.lead),
+                    (tables.carry_int, tables.delay_steps), stages)
     batch, n_zones = ph.shape
     d_max = [s[4] for s in tables.statics if s[0] in _LINE_ATTRS]
     if tables.cl.shape != ph.shape or tables.t.shape != ph.shape \
@@ -1058,9 +1070,6 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
         raise ValueError(f"{name}: shapes disagree")
     if not 1 <= n_zones <= F.MAX_ZONES:
         raise ValueError(f"{name}: n_zones must be in [1, {F.MAX_ZONES}]")
-    if stages is not None and not 2 <= stages <= F.MAX_STAGES:
-        raise ValueError(f"stages must be in [2, {F.MAX_STAGES}], "
-                         f"got {stages}")
     if record_every < 1 or n_steps % record_every:
         raise ValueError(f"n_steps={n_steps} must be a multiple of "
                          f"record_every={record_every}")
@@ -1121,7 +1130,7 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
 
 
 # ---------------------------------------------------------------------------
-# Public wrapper (``models.plant`` objects in and out)
+# Public wrapper (plant objects in and out, of the caller's own classes)
 # ---------------------------------------------------------------------------
 
 
@@ -1182,11 +1191,13 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
     if record_every < 1 or n_steps % record_every:
         raise ValueError(f"n_steps={n_steps} must be a multiple of "
                          f"record_every={record_every}")
-    return _rollout_with(table_runner(params, plant), params, plant,
-                         boundary, dt=dt, substeps=substeps, n_steps=n_steps,
-                         stages=stages, record_every=record_every, bits=bits,
-                         seed=seed, consume_line=consume_line, step0=step0,
-                         plant0=plant0)
+    new_plant, values, _ = _rollout_with(
+        table_runner(params, plant), params, plant, boundary, dt=dt,
+        substeps=substeps, n_steps=n_steps, stages=stages,
+        record_every=record_every, bits=bits, seed=seed,
+        consume_line=consume_line, step0=step0, plant0=plant0)
+    return new_plant, {rname: values[:, k]
+                       for k, (rname, _, _) in enumerate(SENSORS)}
 
 
 def table_runner(params, plant):
@@ -1205,14 +1216,22 @@ def table_runner(params, plant):
 @spanned("wt.b3.wrapper")
 def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
                   stages, record_every, bits, seed, consume_line,
-                  step0: int = 0, plant0: int = 0,
-                  record_faults: bool = False):
+                  step0: int = 0, plant0: int = 0, served: bool = False):
     """``plant_rollout_fused`` with the table-level function ``run``
     (``plant_kernel`` or ``plant_plain``) given: pack the tables, run,
-    rebuild the ``PlantState`` and the readings. The kernel checks call it
-    with ``plant_plain`` on CUDA tensors for the reference on the card.
-    With ``record_faults`` it returns ``(plant, readings, faults)``, the
-    fault codes as the readings."""
+    rebuild the plant. The kernel checks call it with ``plant_plain`` on
+    CUDA tensors for the reference on the card.
+
+    Returns ``(plant, values, faults)``: the record as the kernel writes it,
+    ``[n_steps // record_every, 7, B]`` in ``SENSORS`` order (``[...,
+    7]`` for a single plant), and the fault codes alike or None.
+
+    ``served``: a served chunk's (``models.plant.plant_serve_chunk``). The
+    fault codes are recorded, and a chunk shorter than a sample line's
+    history joins the rebuilt ring with the ring before it
+    (``_join_rings``), so that short chunks chain as one longer chunk
+    would. Without it the rings keep the JAX package's loss of history
+    (the module docstring)."""
     state = plant.reactor
     single = state.pH.ndim == 1
     batch = 1 if single else state.pH.shape[0]
@@ -1223,7 +1242,7 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
         out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
                   stages=stages, record_every=record_every, bits=bits,
                   seed=seed, step0=step0, plant0=plant0,
-                  record_faults=record_faults)
+                  record_faults=served)
 
     with span("wt.b3.unpack"):
         def unprep(x):
@@ -1245,8 +1264,8 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
             temperature=unprep(out.t),
             flow_rate=total_flow + torch.zeros_like(state.flow_rate)))
 
-        # the PlantState again: updated carries, and delay rings rebuilt
-        # from the written-back histories
+        # the plant again: updated carries, and delay rings rebuilt from
+        # the written-back histories (joined with the old ones when served)
         t0 = tables.time
         sensors_new = {}
         for _, attr, kind in SENSORS:
@@ -1268,19 +1287,18 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
                 i = _LINE_ATTRS.index(attr)
                 d_max = tables.lead[i].shape[0] - 1
                 if d_max > 0 and old.base.line_values is not None:
-                    base_updates.update(_rebuild_rings(
-                        out.hist[i], old.base, d_max, n_steps, t0, dt, batch,
-                        dtype))
+                    rings = _rebuild_rings(out.hist[i], old.base, d_max,
+                                           n_steps, t0, dt, batch, dtype)
+                    if served and n_steps < min(
+                            d_max + 1, old.base.line_values.shape[-1]):
+                        rings = _join_rings(old.base, rings, d_max + 1)
+                    base_updates.update(rings)
             sensors_new[attr] = replace(
                 old, base=replace(old.base, **base_updates),
                 **overlay_updates)
 
-        new_plant = PlantState(reactor=new_reactor, **sensors_new)
-
-        def per_sensor(rec):
-            return {rname: rec[:, k, 0] if single else rec[:, k]
-                    for k, (rname, _, _) in enumerate(SENSORS)}
-
-        if record_faults:
-            return new_plant, per_sensor(out.readings), per_sensor(out.faults)
-        return new_plant, per_sensor(out.readings)
+        new_plant = type(plant)(reactor=new_reactor, **sensors_new)
+        if single:
+            return new_plant, out.readings[..., 0], \
+                out.faults[..., 0] if served else None
+        return new_plant, out.readings, out.faults

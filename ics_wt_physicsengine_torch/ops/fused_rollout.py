@@ -292,10 +292,12 @@ def on_device(x, device, dtype=None) -> torch.Tensor:
 
 
 def _column(x, batch, dtype, device):
-    # a Python float goes through NumPy so that it stays float64 until the
-    # cast to ``dtype`` (torch.as_tensor would make it float32 first)
+    """A scalar or ``[batch]`` value as a ``[batch]`` column of ``dtype``
+    (B1's, B2's and B3's tables). A Python float goes through NumPy so
+    that it stays float64 until the cast to ``dtype`` (torch.as_tensor
+    would make it float32 first)."""
     return on_device(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                     device).to(dtype).expand(batch)
+                     device).to(dtype).reshape(-1).expand(batch)
 
 
 def param_table(params: R.ReactorParams, batch: int, dtype,
@@ -537,25 +539,36 @@ def scheduled_plain(ptab, sched, ph, cl, t, *, dt, substeps, stages=None,
 # ---------------------------------------------------------------------------
 
 
+def _check_launch(name, floats, ints=(), stages=None) -> None:
+    """The launch contract kernels B1, B2 and B3 share: every input a
+    contiguous CUDA tensor, the float inputs all float32 or all float64,
+    the integer inputs int32, and ``stages`` None (RK4) or in [2,
+    ``MAX_STAGES``]."""
+    tensors = tuple(floats) + tuple(ints)
+    if any(x.device.type != "cuda" for x in tensors):
+        raise ValueError(f"{name}: every input must be a CUDA tensor")
+    dtype = floats[0].dtype
+    if dtype not in (torch.float32, torch.float64) \
+            or any(x.dtype != dtype for x in floats) \
+            or any(x.dtype != torch.int32 for x in ints):
+        raise ValueError(f"{name}: float inputs must all be float32 or all "
+                         "float64, integer inputs int32")
+    if any(not x.is_contiguous() for x in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if stages is not None and not 2 <= stages <= MAX_STAGES:
+        raise ValueError(f"stages must be in [2, {MAX_STAGES}], got {stages}")
+
+
 def _launch(name, ptab, forcing, ph, cl, t, *, dt, substeps, n_steps, stages,
             record_every):
     from ics_wt_physicsengine_torch.ops import _build
 
-    tensors = (ptab, forcing, ph, cl, t)
-    if any(x.device.type != "cuda" for x in tensors):
-        raise ValueError(f"{name}: every input must be a CUDA tensor")
+    _check_launch(name, (ph, ptab, forcing, cl, t), stages=stages)
     dtype = ph.dtype
-    if dtype not in (torch.float32, torch.float64) \
-            or any(x.dtype != dtype for x in tensors):
-        raise ValueError(f"{name}: inputs must all be float32 or all float64")
-    if any(not x.is_contiguous() for x in tensors):
-        raise ValueError(f"{name}: inputs must be contiguous")
     batch, n_zones = ph.shape
     if cl.shape != ph.shape or t.shape != ph.shape \
             or ptab.shape != (len(PARAM_COLS), batch):
         raise ValueError(f"{name}: shapes disagree")
-    if stages is not None and not 2 <= stages <= MAX_STAGES:
-        raise ValueError(f"stages must be in [2, {MAX_STAGES}], got {stages}")
 
     lib = _build.load()
     outs = [torch.empty_like(ph) for _ in range(3)]

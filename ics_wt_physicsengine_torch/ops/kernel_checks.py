@@ -228,8 +228,9 @@ B3_CASES = {
     "batch64-z128-fast-sched-philox": dict(
         n_zones=128, n_plants=64, integrator="fast", scheduled=True,
         rng="philox", record_every=1),
-    # the serving chunk's launch: the Philox counter from a global step
-    # past 2^32 (it wraps) and the fault-code record; and the fault record
+    # ``faults``: through the served chunk's wrapper (the fault-code
+    # record, the rings joined). The serving chunk's launch: the Philox
+    # counter from a global step past 2^32 (it wraps); and the fault record
     # on the forced fault paths of ``plant_words``; and a fleet shard's
     # chunk: lanes from plant0 = 4 of the fleet, a schedule per lane, each
     # lane on its own clock (a resumed lane lags); and the 254-unit fleet's
@@ -377,19 +378,22 @@ def plant_diff(got, ref) -> dict:
 
 def _fused(run, params, plant, boundary, *, substeps, stages, n_steps,
            record_every=1, bits=None, seed=0, step0=0, plant0=0,
-           record_faults=False):
+           served=False):
+    """B3's wrapper with ``run``: ``(plant, values, faults)``, the record
+    ``[n_rec, 7(, B)]`` in ``FP.SENSORS`` order, faults None unless
+    ``served``."""
     return FP._rollout_with(run, params, plant, boundary, dt=DT,
                             substeps=substeps, n_steps=n_steps,
                             stages=stages, record_every=record_every,
                             bits=bits, seed=seed, consume_line=True,
-                            step0=step0, plant0=plant0,
-                            record_faults=record_faults)
+                            step0=step0, plant0=plant0, served=served)
 
 
 def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
     """Kernel B3 and its plain version on one ``B3_CASES`` entry, both on
-    the card; returns the kernel's ``(plant, readings)`` (and its fault
-    codes, for a case with ``faults``) and ``plant_diff`` of the two."""
+    the card, through the served chunk's wrapper for a case with
+    ``faults``; returns the kernel's ``(plant, values, faults)``
+    (``_fused``'s) and ``plant_diff`` of the two."""
     dtype = case.get("dtype", torch.float32)
     params, plant = plant_case(case["n_zones"], case["n_plants"], dtype,
                                device, delays=case.get("delays", False),
@@ -404,7 +408,7 @@ def b3_vs_plain(case: dict, device, n_steps: int = B3_STEPS):
     kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
               record_every=case["record_every"], bits=bits, seed=11,
               step0=case.get("step0", 0), plant0=case.get("plant0", 0),
-              record_faults=case.get("faults", False))
+              served=case.get("faults", False))
     return b3_vs_plain_on(params, plant, boundary, **kw)
 
 
@@ -436,13 +440,12 @@ def serve_chunk_vs_plain(device, n_steps: int = 120, record_every: int = 7,
     ref, values, faults = _fused(
         FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
         n_steps=n_steps, record_every=every, seed=11, step0=step0,
-        record_faults=True)
+        served=True)
     k = record_every // every
-    ref_values = torch.stack(list(values.values()), dim=1)[k - 1::k]
-    ref_faults = torch.stack(list(faults.values()), dim=1)[k - 1::k]
     torch.cuda.synchronize()
     return got, plant_diff((got.plant, got.values, got.faults),
-                           (ref, ref_values, ref_faults)), launches
+                           (ref, values[k - 1::k], faults[k - 1::k])), \
+        launches
 
 
 def _lanes(tree, lanes: slice):
@@ -492,11 +495,10 @@ def fleet_chunk_vs_plain(device, n_lanes: int = 8, n_steps: int = 120,
     ref, values, faults = _fused(
         FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
         n_steps=n_steps, record_every=record_every, seed=11, step0=5000,
-        record_faults=True)
+        served=True)
     ref = fleet.select_lanes(mask, ref, plant)
     whole = plant_diff((got.plant, got.values, got.faults),
-                       (ref, torch.stack(list(values.values()), dim=1),
-                        torch.stack(list(faults.values()), dim=1)))
+                       (ref, values, faults))
     part = fleet.serve_chunk_masked(
         _lanes(params, shard), _lanes(plant, shard),
         fleet._lane_rows(sched, shard, device), mask[shard],
@@ -572,11 +574,11 @@ def b3_chained(device, n_plants: int = 8, n_zones: int = 5,
                  (FP.plant_plain,) * 3):
         plant, rows = plant0, []
         for k, run in enumerate(runs):
-            plant, readings = _fused(
+            plant, values, _ = _fused(
                 run, params, plant, BC, substeps=substeps, stages=stages,
                 n_steps=segment,
                 bits=words[k * segment:(k + 1) * segment].contiguous())
-            rows.append(readings)
+            rows.append(values)
         ends.append((plant, rows))
     torch.cuda.synchronize()
     return plant_diff(*ends)

@@ -157,7 +157,7 @@ def test_b3_matches_plain(cuda, case):
     same places; integer carries equal."""
     spec = K.B3_CASES[case]
     got, diff = K.b3_vs_plain(spec, cuda)
-    plant, readings = got[:2]
+    plant, values = got[:2]
     assert diff["nan_equal"] and diff["ints_equal"], diff
     # the serving and fleet chunks' cases (the fault record) bit for bit
     tol = 0.0 if spec.get("faults") else \
@@ -165,10 +165,13 @@ def test_b3_matches_plain(cuda, case):
     assert diff["max_abs_err"] <= tol, diff
     assert bool(torch.isfinite(plant.reactor.pH).all())
     n_rec = K.B3_STEPS // spec["record_every"]
-    assert readings["pH_outlet"].shape[0] == n_rec
+    assert values.shape[:2] == (n_rec, len(FP.SENSORS))
     if spec["rng"] == "bits":   # the injected faults went dark
-        assert bool(torch.isnan(readings["pH_outlet"][-1].reshape(-1)[0]))
-        assert bool(torch.isnan(readings["flow_main"][-1].reshape(-1)[0]))
+        column = [name for name, _, _ in FP.SENSORS].index
+        assert bool(torch.isnan(values[-1, column("pH_outlet")]
+                                .reshape(-1)[0]))
+        assert bool(torch.isnan(values[-1, column("flow_main")]
+                                .reshape(-1)[0]))
 
 
 @pytest.mark.parametrize("n_zones,n_plants,integrator",

@@ -5,7 +5,8 @@ scripts: ``examples/`` (``from examples.pid_controller import ...``), the
 JAX tools of ``tools/`` (imported by their file names once ``tools/`` is on
 the path) or the root ``bench.py``. Checked on the source (an AST scan):
 the interpreter may have imported JAX before any test runs, so
-``sys.modules`` proves nothing."""
+``sys.modules`` proves nothing. The same scan holds the kernels' wrappers
+(``ops/``) below ``models/``: they import nothing from it."""
 
 import ast
 from pathlib import Path
@@ -124,3 +125,52 @@ def test_the_scan_catches_the_jax_side(tmp_path, line, bad):
 def test_no_jax_import(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# ``ops/`` lies below ``models/``: the kernels' wrappers and table code take
+# the plant objects they are handed and import nothing of ``models``
+# (``kernel_checks.py`` is test support and exempt).
+OPS_BELOW_MODELS = ("__init__.py", "fused_plant.py", "fused_rollout.py",
+                    "ph_solver.py", "_build.py", "integrators.py")
+
+
+def _models_imports(path):
+    """The imports of ``path``, at any depth, that reach the port's
+    ``models`` package, absolute or relative."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names = [f"{base}.{alias.name}" for alias in node.names]
+        else:
+            continue
+        for name in names:
+            parts = name.lstrip(".").split(".")
+            inside = name.startswith(".") \
+                or parts[0] == "ics_wt_physicsengine_torch"
+            if inside and "models" in parts:
+                yield name
+
+
+@pytest.mark.parametrize("module", OPS_BELOW_MODELS)
+def test_the_ops_wrappers_import_nothing_from_models(module):
+    path = ROOT / "ics_wt_physicsengine_torch" / "ops" / module
+    bad = list(_models_imports(path))
+    assert not bad, f"ops/{module} imports {bad}"
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("from ics_wt_physicsengine_torch.models.plant import PlantState", True),
+    ("from ics_wt_physicsengine_torch import models", True),
+    ("import ics_wt_physicsengine_torch.models.plant as P", True),
+    ("from ..models import plant", True),
+    ("def f():\n    from ics_wt_physicsengine_torch.models import plant",
+     True),
+    ("from ics_wt_physicsengine_torch.ops import fused_rollout as F", False),
+    ("from . import _build", False)])
+def test_the_models_scan_catches_every_form(tmp_path, line, bad):
+    src = tmp_path / "module.py"
+    src.write_text(line + "\n")
+    assert any(True for _ in _models_imports(src)) == bad

@@ -423,6 +423,9 @@ def test_serve_chunk_matches_the_jax_loop(chunk_vs_jax):
 def test_serve_chunks_are_invariant_and_draw_new_noise():
     dev = torch.device("cpu")
     assert K.serve_chunks_invariant(dev)
+    # two chunks shorter than the sample lines' 31-step history in a row:
+    # each joins its ring with the one before it
+    assert K.serve_chunks_invariant(dev, sizes=(4, 4, 24))
     params, plant = K.plant_case(20, 1, torch.float32, dev)
     substeps, _ = K.plant_plan(20, "rk4")
     sched = K.bench_schedule(16)

@@ -6,7 +6,7 @@
 - On, a served chunk (20 zones, 64 steps, B3's plain version), a
   ``plant_rollout_fused`` call and a ``rollout_fused`` call each record
   the tree of their wrapper's parts: parents, one root a call, the four
-  sample lines' lead-ins, the statics twice in a served chunk.
+  sample lines' lead-ins, the statics once in a served chunk.
 - Outputs with spans on equal those with spans off, bit for bit.
 - A span's interval and ``torch.profiler``'s events share one clock: an
   operation run inside a span lies inside it on the profiler's timeline,
@@ -110,7 +110,6 @@ def test_a_served_chunk_records_its_parts(plant):
         ("wt.b3.launch", "wt.b3.wrapper"),
         ("wt.b3.unpack", "wt.b3.wrapper"),
         *[("wt.b3.rings", "wt.b3.unpack")] * 4,
-        ("wt.b3.statics", "wt.serve.chunk"),
         ("wt.serve.codes", "wt.serve.chunk"),
         ("wt.serve.readings", None)]
     chunk = spans[1]

@@ -6,11 +6,13 @@ path runs the same wrapper code as the card's.
   parameter set and ``dt``: a hit on the same parameters and ``dt``, a
   miss after an in-place change of ``line_delay_s``, after another ``dt``
   and after another zone, each counted in ``STATICS_CACHE``; a served
-  chunk misses once and then hits.
+  chunk misses once and then hits, once a chunk.
 - ``on_device`` and the columns, tables and rebuilt rings made without a
   copy from the host equal, bit for bit, what the former expressions
   (``torch.as_tensor(x, device=...)``, a host list of step indices) build,
   in float32 and float64, and so do whole rollouts through the wrappers.
+- B1 and B3 share one column: a float64 plant's parameter set from a
+  Python float stays float64 in B3's tables, as in B1's.
 """
 
 import dataclasses
@@ -131,7 +133,7 @@ def test_served_chunks_miss_once_then_hit(fresh_cache):
     for k in range(3):
         plant = PL.plant_serve_chunk(params, plant, sched, dt=1.0,
                                      substeps=2, seed=5, step0=4 * k).plant
-    assert delta(before) == {"hits": 5, "misses": 1}
+    assert delta(before) == {"hits": 2, "misses": 1}
 
 
 # every value and host array with no target type, each float type, and
@@ -154,19 +156,56 @@ def test_on_device_equals_the_copy_from_the_host(x, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_scalar_columns_equal_the_former_ones(dtype):
     for x in FLOATS + INTS:
-        # B3's: a Python float rounded through the default dtype
-        assert_bits(FP._column(x, 4, dtype, "cpu"),
-                    as_tensor_on(x, "cpu").to(dtype).reshape(-1).expand(4))
-        # B1's: through NumPy, float64 until the cast
+        # B1's and B3's one column: through NumPy, float64 until the cast
         assert_bits(F._column(x, 4, dtype, "cpu"),
                     as_tensor_on(np.asarray(x), "cpu").to(dtype).expand(4))
+        if dtype == torch.float32:
+            # B3's former column, a Python float rounded through the
+            # default dtype, differs only in float64
+            assert_bits(F._column(x, 4, dtype, "cpu"),
+                        as_tensor_on(x, "cpu").to(dtype).reshape(-1)
+                        .expand(4))
         # _finish's flow rate
         assert_bits(F.on_device(x, "cpu", dtype),
                     as_tensor_on(x, "cpu", dtype))
     for x in INTS:
-        assert_bits(FP._column(x, 4, torch.int32, "cpu"),
+        assert_bits(F._column(x, 4, torch.int32, "cpu"),
                     as_tensor_on(x, "cpu").to(torch.int32).reshape(-1)
                     .expand(4))
+
+
+@pytest.mark.parametrize("attr,sub,field", [
+    ("ph_inlet", "base", "drift_rate"),
+    ("chlorine_outlet", None, "ozone_sensitivity"),
+    ("temp_outlet", None, "rtd_alpha")])
+def test_b3_keeps_a_python_float_parameter_in_float64(attr, sub, field,
+                                                      fresh_cache):
+    """A float64 plant's sensor parameter set from a Python float reaches
+    B3's tables, and its rollout, as the float64 tensor of that float does
+    (the JAX package's ``pack_flat`` converts with ``jnp.asarray(x,
+    dtype)``), not rounded to float32 first."""
+    params, plant = K.plant_case(5, 3, torch.float64, "cpu")
+    x = 0.1 + 2.0 ** -40    # off float32's grid
+    sp = getattr(params, attr)
+
+    def with_value(v):
+        changed = K._with_base(sp, **{field: v}) if sub == "base" \
+            else dataclasses.replace(sp, **{field: v})
+        return dataclasses.replace(params, **{attr: changed})
+
+    as_float, as_tensor = with_value(x), with_value(
+        torch.tensor(x, dtype=torch.float64))
+    col = FP._PCOL[(attr, sub, field)]
+    got, want = (FP.build_tables(p, plant, K.BC, dt=1.0, n_steps=4)
+                 for p in (as_float, as_tensor))
+    assert float(got.sensor_params[col, 0]) == x
+    assert_bits(got.sensor_params, want.sensor_params)
+    got, want = (_leaves(FP.plant_rollout_fused(
+        p, plant, K.BC, dt=1.0, substeps=2, n_steps=4, seed=3))
+        for p in (as_float, as_tensor))
+    assert len(got) == len(want) > 40
+    for a, b in zip(got, want):
+        assert_bits(a, b)
 
 
 def former_rebuild_rings(hist, old_carry, d_max, n_steps, t0, dt, batch,
