@@ -32,7 +32,13 @@ Phases:
     bench_plant row's six configurations (1 to 16384 plants, RK4 and
     RKC-fast, its plants and forcing, Philox seed 1, one record as
     plant_rollout_auto launches it at record=False) at a short depth, bit
-    for bit; and the main-path shapes 4096 x 20 and 1 x 20, timed;
+    for bit; and the main-path shapes 4096 x 20 and 1 x 20 on the pack's
+    tables, as the wrapper runs them, timed;
+ 3d. B3's table pack (fused_plant.pack_tables, the wrapper's kernel that
+    makes B3's tables) at a served chunk's shape (1 x 20, a 3600-step
+    schedule) and at 4096 plants with per-plant delays and clocks: its
+    tables bit-equal to build_tables', one launch a call, its device time
+    against the bytes it must move, and the host time of either builder;
  3c. kernel B4 (the Newton pH solve: a lane takes a new element as soon
     as its own is done) against its plain version on the card over
     kernel_checks.B4_CASES, bit for bit (1 to 300,000 waters, 2-D shapes,
@@ -288,9 +294,10 @@ Phases:
 
 Launch counts are zeroed just before each run of a main-path entry point
 (its warm-up and timed calls) and read just after: each call must have
-launched its own kernel once and no other, and the kernels line reports
-the sum over phases 4, 5, 5b, 5c, 5r, 5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct
-kernel calls (phases 3, 3b and 3c, the kernel-only times, 5x's
+launched its own kernel once (B3's wrapper also its table pack) and no
+other, and the kernels line reports the sum over phases 4, 5, 5b, 5c, 5r,
+5t, 5u, 5x, 5z, 5za-5zc and 5ze. Direct kernel calls (phases 3, 3b, 3c
+and 3d, the kernel-only times, 5x's
 comparisons, 5zh's ablated and timed B1/B3 launches) and phase 6 lie
 outside those windows; phases 5d-5q, 5s, 5v, 5w, 5y, 5zf, 5zg and
 5zh's plain plant must launch none. Every phase from 5t prints the
@@ -324,7 +331,8 @@ sys.path.insert(0, ROOT)
 DT = 1.0
 CSRC = "ics_wt_physicsengine_torch/csrc"
 TPU_OPS = "ics_wt_physicsengine_tpu/ops"
-# kernel name -> (source in the repository, TPU kernel it replaces)
+# kernel name -> (source in the repository, TPU kernel it replaces; None
+# for a wrapper's own kernel)
 KERNELS = {
     "rollout_fused": (f"{CSRC}/fused_rollout.cu",
                       f"{TPU_OPS}/fused_rollout.py:272"),
@@ -333,6 +341,8 @@ KERNELS = {
     "plant_rollout_fused": (f"{CSRC}/fused_plant.cu",
                             f"{TPU_OPS}/fused_plant.py:293"),
     "solve_pH_kernel": (f"{CSRC}/ph_solver.cu", f"{TPU_OPS}/ph_solver.py:55"),
+    # B3's tables, made on the card by its wrapper before each launch
+    "pack_tables": (f"{CSRC}/fused_plant.cu", None),
 }
 
 failures: list = []
@@ -405,6 +415,14 @@ def main() -> int:
     from ics_wt_physicsengine_torch.sensors.__main__ import run_demo
     from ics_wt_physicsengine_torch.sensors.types import (SensorFault,
                                                           SensorStatus)
+
+    def only(counts, kernel, n):
+        """What ``counts`` must read after ``n`` calls of ``kernel``'s
+        wrapper and nothing else: ``n`` launches of the kernel and of each
+        other kernel its wrapper launches (``BENCH.WRAPPER_LAUNCHES``: B3's
+        table pack), none of any other kernel."""
+        mine = BENCH.WRAPPER_LAUNCHES.get(kernel, (kernel,))
+        return {k: n * (k in mine) for k in counts}
 
     dev = torch.device("cuda")
     FP32_PEAK = K.PEAK_OPS[torch.float32]
@@ -591,10 +609,11 @@ def main() -> int:
                   f"{nan_share:.3f} of readings NaN")
         chunk, d, launches = K.serve_chunk_vs_plain(dev)
         rows.append(dict(case="serving chunk", launches=launches, **d))
-        check(held(d, 0.0) and launches == 1,
+        check(held(d, 0.0)
+              and launches == only(launches, "plant_rollout_fused", 1),
               "B3 serving chunk (plant_serve_chunk, 1x20 x120, step0 2^32 - "
               "50, fault record every 7) == plain version bit for bit: max "
-              f"abs diff {d['max_abs_err']:.3e}, {launches} launch")
+              f"abs diff {d['max_abs_err']:.3e}, launches {launches}")
         check(K.serve_chunks_invariant(dev)
               and K.serve_chunks_invariant(dev, sizes=(8, 8, 12, 12, 12)),
               "B3 serving chunks 16 + 16 == 32 and 8 + 8 + 12 + 12 + 12 == "
@@ -642,17 +661,21 @@ def main() -> int:
         report["compare_b3"] = rows
         report["philox"] = stats
 
-        # main-path shapes, float32, Philox, timed: the kernels line
+        # main-path shapes, float32, Philox, timed: the kernels line. B3
+        # runs on the pack's tables, as its wrapper runs it; the plain
+        # version on build_tables'
         m, s = K.plant_plan(20, "rk4")
         for n_plants, n_steps in ((1, 100), (4096, 50)):
             params, plant = K.plant_case(20, n_plants, f32, dev)
-            tables = FP.build_tables(params, plant, K.BC, dt=DT,
-                                     n_steps=n_steps)
+            tables = FP.pack_tables(params, plant, K.BC, dt=DT,
+                                    n_steps=n_steps)
             kw = dict(dt=DT, substeps=m, n_steps=n_steps, stages=s,
                       record_every=10, seed=7)
             FP.plant_kernel(tables, **kw)                   # warm-up
             ms, got = timed(lambda: FP.plant_kernel(tables, **kw), reps=5)
-            plain_ms, ref = timed(lambda: FP.plant_plain(tables, **kw))
+            plain_ms, ref = timed(lambda: FP.plant_plain(
+                FP.build_tables(params, plant, K.BC, dt=DT, n_steps=n_steps),
+                **kw))
             d = K.plant_diff(got, ref)
             bound, bound_by = plant_bound(n_plants, n_steps, m, s, 10,
                                           tables)
@@ -673,6 +696,73 @@ def main() -> int:
         return True
 
     compare_plant()
+
+    # ---- 3d. B3's table pack against build_tables -------------------------
+    @phase("table pack vs build_tables")
+    def compare_pack():
+        """The pack kernel at a served chunk's shape (one 20-zone plant, a
+        3600-step schedule) and at 4096 plants with per-plant line delays
+        and clocks: its tables bit-equal to ``build_tables``', one launch a
+        call, its device time (``torch.profiler``, 20 calls) against the
+        bytes it must move over the memory rate, and the host time of a
+        call of each builder."""
+        rows = []
+        served = P.make_plant(R.ReactorConfiguration(n_zones=20), dtype=f32,
+                              device=dev)
+        from ics_wt_physicsengine_torch import __main__ as orchestrator
+        sched = orchestrator.build_chunk_schedule(
+            K.BC, R.BoundaryConditions(acid_flow_rate=0.5), 3600, DT, 0.0,
+            device=dev)[0]
+        cases = (("served chunk 1x20 x3600", *served, sched, 3600),
+                 ("4096x20 x50", *K.plant_case(20, 4096, f32, dev,
+                                               delays=True, clocks=True),
+                  K.BC, 50))
+        for tag, params, plant, boundary, n_steps in cases:
+            def pack():
+                return FP.pack_tables(params, plant, boundary, dt=DT,
+                                      n_steps=n_steps)
+
+            def tensors():
+                return FP.build_tables(params, plant, boundary, dt=DT,
+                                       n_steps=n_steps)
+            want = tensors()
+            FP.reset_launch_counts()
+            got = pack()
+            torch.cuda.synchronize()
+            launches = dict(FP.LAUNCHES)
+            a = [getattr(got, n) for n in PACK_TABLES] + list(got.lead)
+            b = [getattr(want, n) for n in PACK_TABLES] + list(want.lead)
+            d = K.plant_diff(a, b)
+            same = all(same_bits(x, y) for x, y in zip(a, b)) \
+                and got.statics == want.statics \
+                and got.scheduled == want.scheduled
+            sums = kernel_breakdown(lambda: [pack() for _ in range(20)])
+            ms = sum(v for k, v in sums.items() if "pack_tables_kernel" in k) \
+                / 20
+            host_ms, _ = timed(pack, reps=20)
+            plain_ms, _ = timed(tensors, reps=5)
+            moved = pack_bytes(FP.describe_tables(
+                params, plant, boundary, got.statics, dt=DT, n_steps=n_steps),
+                got)
+            bound = moved / HBM_RATE * 1e3
+            rows.append(dict(case=tag, launches=launches, ms=ms,
+                             host_ms=host_ms, plain_ms=plain_ms,
+                             bytes=moved, bound_ms=bound, **d))
+            check(same and launches == only(launches, "pack_tables", 1)
+                  and ms >= bound,
+                  f"table pack {tag}: bit-equal to build_tables over every "
+                  f"table and lead-in ({same}); launches {launches}; device "
+                  f"{ms * 1e3:.2f} us a call, bound {bound * 1e3:.2f} us "
+                  f"({moved / 1e6:.3f} MB); host {host_ms:.3f} ms a call, "
+                  f"build_tables {plain_ms:.3f} ms")
+        report["compare_pack"] = rows
+        kernels["pack_tables"].update(
+            max_abs_err=rows[0]["max_abs_err"], ms=rows[0]["ms"],
+            plain_ms=rows[0]["plain_ms"], bound_ms=rows[0]["bound_ms"],
+            bound_by="bytes")
+        return True
+
+    compare_pack()
 
     def ph_bound_text(b):
         """A B4 time's bounds (a time under the live bound fails: the
@@ -744,6 +834,10 @@ def main() -> int:
 
     main_launches = dict.fromkeys(KERNELS, 0)
 
+    def add_main(counts):
+        for kernel, n in counts.items():
+            main_launches[kernel] += n
+
     def on_main_path(name, run, reps, launches_per_call=1):
         """A warm-up and ``reps`` timed calls of entry point ``name``, with
         every launch count zeroed just before and read just after: each
@@ -758,7 +852,7 @@ def main() -> int:
         for kernel, n in counts.items():
             main_launches[kernel] += n
         calls = (1 + reps) * launches_per_call
-        want = {kernel: calls * (kernel == name) for kernel in counts}
+        want = only(counts, name, calls)
         check(counts == want, f"{name}: launches {counts} for {calls} "
               "calls")
         return ms, out
@@ -2148,14 +2242,14 @@ def main() -> int:
             served_s = time.perf_counter() - t_start
         counts = kernel_counts()
         n_chunks = len(chunks.ms)
-        main_launches[name] += counts[name]
+        add_main(counts)
         check(not thread.is_alive(), "SERVE-CHUNK-20: the serving loop "
               "stopped when asked")
-        check(n_chunks > 0 and counts == {
-            k: n_chunks * (k == name) for k in counts}
+        check(n_chunks > 0 and counts == only(counts, name, n_chunks)
             and len(steps.ms) == 0,
             f"SERVE-CHUNK-20: {n_chunks} chunks, launches {counts}: B3 "
-            f"once a chunk, no other kernel; plant_step called "
+            f"and its table pack once a chunk, no other kernel; plant_step "
+            f"called "
             f"{len(steps.ms)} times")
         # the chunk's kernel alone on a chunk's tables, beside the wrapper
         params, plant = P.make_plant(R.ReactorConfiguration(n_zones=20),
@@ -2164,7 +2258,7 @@ def main() -> int:
             R.BoundaryConditions(), R.BoundaryConditions(acid_flow_rate=0.5),
             chunk, DT, 0.0, device=dev)[0]
         m = R.default_substeps(R.ReactorConfiguration(n_zones=20), DT)
-        tables = FP.build_tables(params, plant, sched, dt=DT, n_steps=chunk)
+        tables = FP.pack_tables(params, plant, sched, dt=DT, n_steps=chunk)
         kw = dict(dt=DT, substeps=m, n_steps=chunk, seed=7, step0=chunk,
                   record_faults=True)
         FP.plant_kernel(tables, **kw)
@@ -2330,14 +2424,14 @@ def main() -> int:
                 orchestrator.running = False
                 thread.join(timeout=120)
         counts = kernel_counts()
-        main_launches[name] += counts[name]
+        add_main(counts)
         n_chunks = len(chunks.ms)
         check(not thread.is_alive(), f"{tag}: the loop stopped when asked")
-        check(n_chunks > 0 and counts == {
-            k: n_chunks * (k == name) for k in counts}
-            and len(steps.ms) == 0,
-            f"{tag}: {n_chunks} chunks, launches {counts}: B3 once a chunk, "
-            f"plant_step called {len(steps.ms)} times")
+        check(n_chunks > 0 and counts == only(counts, name, n_chunks)
+              and len(steps.ms) == 0,
+              f"{tag}: {n_chunks} chunks, launches {counts}: B3 and its "
+              f"table pack once a chunk, plant_step called {len(steps.ms)} "
+              "times")
         starts = chunks.times
         iteration = median([b - a for a, b in zip(starts[1:-1], starts[2:])
                             ]) * 1e3 if len(starts) > 3 else float("nan")
@@ -2361,7 +2455,7 @@ def main() -> int:
                  for _ in range(n_lanes)]
         sched = FLEET._stack_boundary_schedule(units, units, chunk, DT, 0.0,
                                                f32, dev)[0]
-        tables = FP.build_tables(params, plant, sched, dt=DT, n_steps=chunk)
+        tables = FP.pack_tables(params, plant, sched, dt=DT, n_steps=chunk)
         kw = dict(dt=DT, substeps=m20, n_steps=chunk, seed=7, step0=chunk,
                   record_faults=True)
         FP.plant_kernel(tables, **kw)
@@ -2540,7 +2634,7 @@ def main() -> int:
         reset_kernel_counts()
         ms, ((plants,), (readings,)) = timed(lambda: fn(pp, pl, policy))
         counts = kernel_counts()
-        main_launches["plant_rollout_fused"] += counts["plant_rollout_fused"]
+        add_main(counts)
         one_ms, ref = timed(lambda: FP.plant_rollout_fused(
             pp, pl, policy, dt=DT, substeps=m20, n_steps=2000,
             record_every=100, seed=7))
@@ -2548,8 +2642,7 @@ def main() -> int:
         out["plant_4096"] = dict(sharded_ms=ms, single_ms=one_ms,
                                  launches=counts, diff=d)
         check(d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"]
-              and counts == {k: int(k == "plant_rollout_fused")
-                             for k in counts},
+              and counts == only(counts, "plant_rollout_fused", 1),
               f"MESH-1 PLANT-4096 (4096 x 20 x 2000, every 100th): "
               f"sharded_plant_rollout_fused {ms:.2f} ms, one launch, "
               f"bit-equal to plant_rollout_fused ({one_ms:.2f} ms)")
@@ -2563,7 +2656,7 @@ def main() -> int:
         reset_kernel_counts()
         ms, (plants, readings) = timed(lambda: fn(pp, pl, policy))
         counts = kernel_counts()
-        main_launches["plant_rollout_fused"] += counts["plant_rollout_fused"]
+        add_main(counts)
         diffs = []
         for k in range(2):
             lanes = slice(2048 * k, 2048 * (k + 1))
@@ -2575,8 +2668,7 @@ def main() -> int:
                                             diffs=diffs)
         check(all(d["max_abs_err"] == 0.0 and d["nan_equal"]
                   and d["ints_equal"] for d in diffs)
-              and counts == {k: 2 * int(k == "plant_rollout_fused")
-                             for k in counts},
+              and counts == only(counts, "plant_rollout_fused", 2),
               f"MESH-1 PLANT-4096 over the card listed twice: "
               f"{ms:.2f} ms, two launches, each shard bit-equal to its "
               f"lanes of plant_rollout_fused (plant0 = 0, 2048)")
@@ -2596,8 +2688,10 @@ def main() -> int:
                 check(d["max_abs_err"] == 0.0 and d["nan_equal"]
                       and d["ints_equal"],
                       f"MESH-1: {what}: bit-equal ({d})")
-            check(fl["launches"] == 1, f"MESH-1: the {lanes}-lane fleet "
-                  f"chunk launched B3 {fl['launches']} time(s)")
+            check(fl["launches"] == only(fl["launches"],
+                                         "plant_rollout_fused", 1),
+                  f"MESH-1: the {lanes}-lane fleet chunk launched "
+                  f"{fl['launches']}")
         report["mesh_1"] = out
         return True
 
@@ -2782,12 +2876,12 @@ def main() -> int:
         fused_run(pl)
         ms, y = timed(lambda: fused_run(pl), reps=3)
         counts = kernel_counts()
-        main_launches[name] += counts[name]
+        add_main(counts)
         frate = INTEG_PLANTS * INTEG_FUSED_STEPS / (ms / 1e3)
         out["fused"] = dict(n_steps=INTEG_FUSED_STEPS, ms=ms,
                             plant_steps_per_s=frate, kernel_launches=counts)
         check(bool(torch.isfinite(y.reactor.pH).all())
-              and counts == {k: 4 * int(k == name) for k in counts},
+              and counts == only(counts, name, 4),
               f"INTEG-65536 through plant_rollout_auto (B3, "
               f"{INTEG_FUSED_STEPS} steps, one launch a call): {ms:.2f} ms, "
               f"{frate:.4e} plant-steps/s ({frate / rate:.0f}x the plain "
@@ -2860,7 +2954,8 @@ def main() -> int:
         for row, r in rows.items():
             want = BENCH.KERNEL_ROWS.get(row)
             check(r["launches"] == r["calls"] and set(r["calls"]) == (
-                {want} if want else set()),
+                set(BENCH.WRAPPER_LAUNCHES.get(want, (want,))) if want
+                else set()),
                 f"BENCH-QUICK {row}: launches {r['launches']} for kernel "
                 f"calls {r['calls']} (one {want or 'no kernel'} a call)")
         # PHILOX-STATS: bench.py's production-PRNG check at its full size
@@ -2871,8 +2966,8 @@ def main() -> int:
         counts = launches_into_main()
         out["PHILOX-STATS"] = dict(seconds=secs, **stats,
                                    kernel_launches=counts)
-        check(stats["philox_prng_ok"] and counts == {
-            k: 64 * int(k == "plant_rollout_fused") for k in counts},
+        check(stats["philox_prng_ok"]
+              and counts == only(counts, "plant_rollout_fused", 64),
             f"PHILOX-STATS: {stats['philox_prng_reads']} B3 Philox "
             f"pH_inlet readings (64 launches of 128 fresh plants x 1024 "
             f"steps) against plant_rollout_batched's generator: mean delta "
@@ -3045,8 +3140,7 @@ def main() -> int:
             check(hil["n_segments"] == 24
                   and len(series["pH_outlet"]) == 24 * 60
                   and min(finite.values()) >= 0.5
-                  and counts == {k: 24 * int(k == "plant_rollout_fused")
-                                 for k in counts},
+                  and counts == only(counts, "plant_rollout_fused", 24),
                   f"EX-HIL-24H: examples_torch/dosing_program_hil.py, 24 h "
                   f"in 24 one-hour B3 segments recorded every minute: "
                   f"{rate:.4e} steps/s after the first; finite share "
@@ -3720,6 +3814,38 @@ ENTRY_POINTS = {
     "sensors.validation": "ALL SENSOR VALIDATIONS PASSED on cuda",
 }
 ENTRY_TIMEOUT_S = 120.0
+
+
+# The tables the pack makes (beside the four lead-ins), as PlantTables names
+# them.
+PACK_TABLES = ("ptab", "forcing", "sensor_params", "carry_float",
+               "carry_int", "delay_steps", "time")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two tensors are equal bit for bit (NaN payloads and signed
+    zeros included)."""
+    def raw(x):
+        if x.dtype.is_floating_point:
+            return x.contiguous().view({4: torch.int32, 8: torch.int64}[
+                x.element_size()])
+        return x
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and torch.equal(raw(a), raw(b))
+
+
+def pack_bytes(desc, tables) -> int:
+    """Bytes one table pack must move: each tensor the descriptor names
+    read once (a ring whole), every table written once."""
+    seen, read = set(), 0
+    for x in desc.leaves:
+        if isinstance(x, torch.Tensor) and x.data_ptr() not in seen:
+            seen.add(x.data_ptr())
+            read += x.numel() * x.element_size()
+    written = sum(getattr(tables, n).numel() * getattr(tables, n)
+                  .element_size() for n in PACK_TABLES) \
+        + tables.lead_block.numel() * tables.lead_block.element_size()
+    return read + written
 
 
 def fmt(x, spec):

@@ -593,6 +593,296 @@ __global__ void philox_words_kernel(unsigned long long seed, int n_steps,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The table pack: every table B3 reads, made in one launch
+// ---------------------------------------------------------------------------
+//
+// pack_tables_kernel (wt_pack_tables) replaces no TPU kernel: the JAX
+// package builds B3's tables with XLA operations inside its jitted wrapper.
+// The tables read ~270 leaves (a sensor's parameter or carry, a reactor
+// parameter, a boundary field, the clock, a sample line's ring); made with
+// PyTorch operations (ops/fused_plant.py::build_tables, the plain
+// version's route) they cost a few launches a leaf and ~30 a lead-in
+// (_resolve_lead_in), ~400 launches before B3 on an idle card in a served
+// chunk. Here the wrapper hands the leaves over as a descriptor in the
+// kernel's arguments (an address, or a host number's bits, an element type
+// and a batch stride each: PackArgs), and one thread makes one element of
+// a table, converting as PyTorch's casts do (static_cast, round to
+// nearest).
+//
+// The lead-in: one thread per (line, history slot, plant) resolves the read
+// that slot serves against the incoming ring, in _resolve_lead_in's
+// operations, order and working type: target time, each surviving slot's
+// distance, argmin's first-index tie-break (a NaN distance wins, as
+// torch.argmin's), the step-0 sample's distance and the slot < ptr rule.
+// It loops over the ring's filled slots only: an empty slot's distance is
+// infinite and never the first minimum.
+//
+// Bound: neither operations nor bytes. At one plant it is one launch's
+// latency (~36,000 elements of a 3600-step schedule); at 4096 plants it
+// moves ~5 MB and reads the rings from L2 (31 reads of a ring row per
+// slot).
+
+namespace pack {
+
+// Element type of a leaf (ops/fused_plant.py: LEAF_KINDS, HOST_FLOAT,
+// HOST_INT): a tensor's, or a host number's bits (float64 or int64).
+enum LeafKind : unsigned {
+  kF32 = 0, kF64 = 1, kBool = 2, kI32 = 3, kI64 = 4, kHostF64 = 5,
+  kHostI64 = 6
+};
+constexpr unsigned kKindBits = 4;
+
+// Leaf order (ops/fused_plant.py: PACK_LEAVES): the sensors' parameters,
+// float carries and integer carries, the reactor parameters, the boundary
+// fields and the plant clock; then per sample line its ring's values,
+// times, count and pointer and its delay.
+constexpr int kPCols = 98, kFloatCCols = 94, kIntCCols = 28;
+constexpr int kParamCols = 16, kBoundaryCols = 10;
+constexpr int kLines = 4, kLineLeaves = 5;
+constexpr int kFirstIntCol = kPCols + kFloatCCols;
+constexpr int kFirstParam = kFirstIntCol + kIntCCols;
+constexpr int kFirstBoundary = kFirstParam + kParamCols;
+constexpr int kClock = kFirstBoundary + kBoundaryCols;
+constexpr int kColumns = kClock + 1;
+constexpr int kLeaves = kColumns + kLines * kLineLeaves;
+enum LineLeaf { kValues = 0, kTimes = 1, kCount = 2, kPtr = 3, kDelay = 4 };
+// The float block holds rows of the parameters, float carries and reactor
+// parameters, then the forcing, the clock and the lead-ins; the int32
+// block rows of the integer carries, then the delays in steps.
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 16384;
+
+// The layout the wrapper passes, int64 each (ops/fused_plant.py:
+// PACK_FIELDS).
+struct Layout {
+  long long n_leaves, n_pcols, n_float_ccols, n_int_ccols, n_params,
+      n_boundary, batch, n_steps, scheduled, forcing_at, clock_at;
+  long long forcing_plant_stride[kBoundaryCols];
+  long long d_max[kLines], slots[kLines], lead[kLines],
+      value_slot_stride[kLines], time_slot_stride[kLines], lead_at[kLines];
+};
+
+struct PackArgs {
+  unsigned long long at[kLeaves];   // address, or a host number's bits
+  unsigned code[kLeaves];           // kind | batch stride << kKindBits
+  Layout l;
+  long long n_lead;                 // elements of the four lead-ins
+  double dt;
+  void* floats;                     // the float block, working type
+  int* ints;                        // the int32 block
+};
+
+// Element ``i`` of leaf ``k`` as T, converted as PyTorch's ``.to`` does.
+template <typename T>
+__device__ __forceinline__ T load(const PackArgs& a, int k, long long i) {
+  const unsigned long long at = a.at[k];
+  switch (a.code[k] & ((1u << kKindBits) - 1u)) {
+    case kF32: return static_cast<T>(reinterpret_cast<const float*>(at)[i]);
+    case kF64: return static_cast<T>(reinterpret_cast<const double*>(at)[i]);
+    case kBool:
+      return static_cast<T>(reinterpret_cast<const unsigned char*>(at)[i] !=
+                            0);
+    case kI32: return static_cast<T>(reinterpret_cast<const int*>(at)[i]);
+    case kI64:
+      return static_cast<T>(reinterpret_cast<const long long*>(at)[i]);
+    case kHostF64:
+      return static_cast<T>(__longlong_as_double(static_cast<long long>(at)));
+    default: return static_cast<T>(static_cast<long long>(at));
+  }
+}
+
+__device__ __forceinline__ long long stride_of(const PackArgs& a, int k) {
+  return static_cast<long long>(a.code[k] >> kKindBits);
+}
+
+template <typename S>
+__device__ __forceinline__ S quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);      // a Python NaN cast to float32
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// Plant b's delay of line ``line`` in whole steps: round-half-even of the
+// IEEE quotient delay / dt in the working type, clamped to [0, d_max]
+// (NaN passes the clamp, as torch.clamp's), truncated to int32.
+template <typename S>
+__device__ __forceinline__ int delay_steps(const PackArgs& a, int line,
+                                           long long b) {
+  const int k = kColumns + line * kLineLeaves + kDelay;
+  const S q = load<S>(a, k, b * stride_of(a, k)) / static_cast<S>(a.dt);
+  S r = rint(q);
+  if (!isnan(r)) {
+    r = fmin(fmax(r, S(0)), static_cast<S>(a.l.d_max[line]));
+  }
+  return static_cast<int>(r);
+}
+
+// History slot j of line ``line`` for plant b (_resolve_lead_in).
+template <typename S>
+__device__ S lead_in(const PackArgs& a, int line, long long j, long long b) {
+  if (!a.l.lead[line]) return quiet_nan<S>();
+  const long long d = delay_steps<S>(a, line, b);
+  const long long g = j - 1 - (a.l.d_max[line] - d);   // the read it serves
+  if (g < 0 || g >= d) return quiet_nan<S>();
+  const int base = kColumns + line * kLineLeaves;
+  const S dt = static_cast<S>(a.dt);
+  const S gf = static_cast<S>(g);
+  const S delay = load<S>(a, base + kDelay, b * stride_of(a, base + kDelay));
+  const S t0 = load<S>(a, kClock, b * stride_of(a, kClock));
+  const S target = (t0 + (gf + S(1)) * dt) - delay;
+  const long long count =
+      load<long long>(a, base + kCount, b * stride_of(a, base + kCount));
+  const long long ptr =
+      load<long long>(a, base + kPtr, b * stride_of(a, base + kPtr));
+  const long long slots = a.l.slots[line];
+  const long long times = b * stride_of(a, base + kTimes);
+  const long long filled = count < slots ? count : slots;
+  S best = static_cast<S>(INFINITY);
+  long long best_slot = 0;
+  for (long long c = 0; c < filled; ++c) {
+    long long overwritten = (c - ptr) % slots;
+    if (overwritten < 0) overwritten += slots;
+    const S dist =
+        overwritten > g
+            ? fabs(load<S>(a, base + kTimes,
+                           times + c * a.l.time_slot_stride[line]) -
+                   target)
+            : static_cast<S>(INFINITY);
+    if (isnan(dist) ? !isnan(best) : dist < best) {
+      best = dist;
+      best_slot = c;
+    }
+  }
+  const S dist0 = fabs(delay - gf * dt);
+  const bool use = best < dist0 || (best == dist0 && best_slot < ptr);
+  if (!use) return quiet_nan<S>();
+  return load<S>(a, base + kValues,
+                 b * stride_of(a, base + kValues) +
+                     best_slot * a.l.value_slot_stride[line]);
+}
+
+// Flat work: the column leaves (kColumns x B), the schedule (n_steps x 10,
+// or n_steps x 10 x B), the delays (4 x B), the lead-ins (sum of
+// (d_max + 1) x B), each element once.
+template <typename S>
+__global__ void __launch_bounds__(kThreads)
+pack_tables_kernel(const __grid_constant__ PackArgs a) {
+  const long long batch = a.l.batch;
+  const long long n_columns = kColumns * batch;
+  const long long n_forcing =
+      a.l.scheduled == kSharedSchedule ? a.l.n_steps * kBoundaryCols
+      : a.l.scheduled == kPlantSchedule
+          ? a.l.n_steps * kBoundaryCols * batch
+          : 0;
+  const long long n_delays = kLines * batch;
+  const long long total = n_columns + n_forcing + n_delays + a.n_lead;
+  S* floats = static_cast<S*>(a.floats);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    long long r = i;
+    if (r < n_columns) {
+      const int k = static_cast<int>(r / batch);
+      const long long b = r - k * batch;
+      const long long at = b * stride_of(a, k);
+      if (k < kFirstIntCol) {
+        floats[r] = load<S>(a, k, at);
+      } else if (k < kFirstParam) {
+        a.ints[r - kFirstIntCol * batch] = load<int>(a, k, at);
+      } else if (k < kFirstBoundary) {
+        floats[r - kIntCCols * batch] = load<S>(a, k, at);
+      } else if (k < kClock) {
+        if (a.l.scheduled == 0) {
+          floats[a.l.forcing_at + (k - kFirstBoundary) * batch + b] =
+              load<S>(a, k, at);
+        }
+      } else {
+        floats[a.l.clock_at + b] = load<S>(a, k, at);
+      }
+      continue;
+    }
+    r -= n_columns;
+    if (r < n_forcing) {
+      // [n_steps, 10] rows of one schedule, or [n_steps, 10, B]
+      const long long b = a.l.scheduled == kPlantSchedule ? r % batch : 0;
+      const long long row = a.l.scheduled == kPlantSchedule ? r / batch : r;
+      const int c = static_cast<int>(row % kBoundaryCols);
+      const long long step = row / kBoundaryCols;
+      const int k = kFirstBoundary + c;
+      floats[a.l.forcing_at + r] =
+          load<S>(a, k, step * stride_of(a, k) +
+                            b * a.l.forcing_plant_stride[c]);
+      continue;
+    }
+    r -= n_forcing;
+    if (r < n_delays) {
+      a.ints[kIntCCols * batch + r] =
+          delay_steps<S>(a, static_cast<int>(r / batch), r % batch);
+      continue;
+    }
+    r -= n_delays;
+    int line = 0;
+    while (line < kLines - 1 && r >= (a.l.d_max[line] + 1) * batch) {
+      r -= (a.l.d_max[line] + 1) * batch;
+      ++line;
+    }
+    floats[a.l.lead_at[line] + r] = lead_in<S>(a, line, r / batch, r % batch);
+  }
+}
+
+template <typename S>
+int launch_pack(const unsigned long long* at, const unsigned* code,
+                const long long* layout, double dt, void* floats, int* ints,
+                cudaStream_t stream) {
+  PackArgs a{};
+  long long* fields = reinterpret_cast<long long*>(&a.l);
+  for (int k = 0; k < static_cast<int>(sizeof(Layout) / sizeof(long long));
+       ++k) {
+    fields[k] = layout[k];
+  }
+  const Layout& l = a.l;
+  if (l.n_leaves != kLeaves || l.n_pcols != kPCols ||
+      l.n_float_ccols != kFloatCCols || l.n_int_ccols != kIntCCols ||
+      l.n_params != kParamCols || l.n_boundary != kBoundaryCols ||
+      l.batch < 1 || l.n_steps < 0 || l.scheduled < 0 ||
+      l.scheduled > kPlantSchedule || floats == nullptr || ints == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int k = 0; k < kLeaves; ++k) {
+    a.at[k] = at[k];
+    a.code[k] = code[k];
+  }
+  a.n_lead = 0;
+  for (int line = 0; line < kLines; ++line) {
+    if (l.d_max[line] < 0 || (l.lead[line] && l.slots[line] < 1)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.n_lead += (l.d_max[line] + 1) * l.batch;
+  }
+  a.dt = dt;
+  a.floats = floats;
+  a.ints = ints;
+  const long long n_forcing =
+      l.scheduled == kSharedSchedule ? l.n_steps * kBoundaryCols
+      : l.scheduled == kPlantSchedule ? l.n_steps * kBoundaryCols * l.batch
+                                      : 0;
+  const long long total =
+      (kColumns + kLines) * l.batch + n_forcing + a.n_lead;
+  long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  pack_tables_kernel<S><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace pack
+
 }  // namespace wt
 
 extern "C" {
@@ -657,6 +947,23 @@ int wt_philox_words(unsigned long long seed, int n_steps, int batch,
                             static_cast<cudaStream_t>(stream)>>>(
       seed, n_steps, batch, reinterpret_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The table pack: B3's tables from the descriptor (``at`` and ``code``,
+// kLeaves each, and the int64 ``layout``: ops/fused_plant.py::
+// pack_tables) into the float block ``floats`` (float64 if ``is_double``,
+// else float32) and the int32 block ``ints``. Returns the cudaError_t of
+// the launch, cudaErrorInvalidValue for a descriptor of another leaf
+// order.
+int wt_pack_tables(int is_double, const unsigned long long* at,
+                   const unsigned* code, const long long* layout, double dt,
+                   void* floats, int* ints, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (is_double) {
+    return wt::pack::launch_pack<double>(at, code, layout, dt, floats, ints,
+                                         s);
+  }
+  return wt::pack::launch_pack<float>(at, code, layout, dt, floats, ints, s);
 }
 
 const char* wt_plant_error_string(int code) {

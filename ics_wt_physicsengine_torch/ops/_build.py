@@ -191,6 +191,10 @@ def bind(name: str, path: Path):
         lib.wt_plant_rollout.restype = i32
         lib.wt_philox_words.argtypes = [u64, i32, i32, ptr, ptr]
         lib.wt_philox_words.restype = i32
+        if hasattr(lib, "wt_pack_tables"):     # builds before the pack lack it
+            lib.wt_pack_tables.argtypes = [i32, ptr, ptr, ptr, f64, ptr, ptr,
+                                           ptr]
+            lib.wt_pack_tables.restype = i32
         lib.wt_plant_error_string.argtypes = [i32]
         lib.wt_plant_error_string.restype = ctypes.c_char_p
     elif name == "ph_solver":

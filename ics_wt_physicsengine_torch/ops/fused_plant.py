@@ -67,22 +67,34 @@ Which path runs is decided by the device of the state alone: a CPU tensor
 runs the plain version (the same algorithm as a Python loop over steps on
 ``[B]``/``[B, Z]`` tensors, calling the ``sensors`` package's read
 functions), a CUDA tensor launches the kernel or raises. ``LAUNCHES``
-counts kernel launches; ``division_fallbacks()`` reads B3's own count of
-float32 blocks that took the IEEE divisions
-(``fused_rollout.DIVISION_PARAM_WINDOWS``).
+counts kernel launches, B3's and the table pack's;
+``division_fallbacks()`` reads B3's own count of float32 blocks that took
+the IEEE divisions (``fused_rollout.DIVISION_PARAM_WINDOWS``).
 
 On the card the wrapper only enqueues work: once ``sensor_statics`` has
 seen a parameter set and ``dt`` (``STATICS_CACHE`` counts its hits and
 misses), no call synchronizes with the device or copies from the host
 with a wait, so the host prepares the next call while B3 runs this one.
+
+Tables: B3's come from one launch of the pack kernel
+(``csrc/fused_plant.cu::pack_tables_kernel``, ``pack_tables``): the host
+walks the leaves the tables read (``PACK_LEAVES``) and hands their
+addresses, types and strides, or their values where they are host
+numbers, to the kernel in its arguments (``describe_tables``), and the
+kernel converts every element and resolves the four lead-ins, bit-equal to
+``build_tables``. The plain version's tables are ``build_tables``', made by
+PyTorch operations on either device. A route pairs the two
+(``kernel_route``, ``tensor_route``; ``table_runner`` picks one by device);
+``TABLE_PACKS`` counts the tables each builder makes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import struct
 import weakref
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import List, Optional
 
 import numpy as np
@@ -207,7 +219,7 @@ TYPE_CODES = {
     "temp": lambda sensor_type: 0 if "rtd" in sensor_type else 1,
 }
 
-LAUNCHES = {"plant_rollout_fused": 0}
+LAUNCHES = {"plant_rollout_fused": 0, "pack_tables": 0}
 # The cards this process launched B3 on since the last reset (as
 # fused_rollout._DIVISION_DEVICES).
 _DIVISION_DEVICES: set = set()
@@ -323,12 +335,13 @@ def plant_geometry(n_zones: int, batch: int) -> PlantGeometry:
 
 
 def reset_launch_counts() -> None:
-    """Zero ``LAUNCHES`` and, on the cards launched on, B3's division
-    counter."""
+    """Zero ``LAUNCHES``, ``TABLE_PACKS`` and, on the cards launched on,
+    B3's division counter."""
     from ics_wt_physicsengine_torch.ops import _build
 
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TABLE_PACKS):
+        for name in counts:
+            counts[name] = 0
     _build.reset_division_fallbacks("fused_plant", _DIVISION_DEVICES)
 
 
@@ -672,10 +685,13 @@ def plant_schedule_table(schedule: R.BoundaryConditions, n_steps: int,
                          batch: int, dtype, device) -> torch.Tensor:
     """Per-plant forcing as a ``[n_steps, 10, B]`` table: a ``[n_steps,
     B]`` field per step and plant, a ``[n_steps]`` field per step, a scalar
-    for every step and plant."""
+    for every step and plant. Host numbers convert as ``_column``'s do
+    (through NumPy: a Python float stays float64 until the cast)."""
     cols = []
     for name in F.BOUNDARY_FIELDS:
-        x = F.on_device(getattr(schedule, name), device).to(dtype)
+        x = getattr(schedule, name)
+        x = F.on_device(x if isinstance(x, torch.Tensor) else np.asarray(x),
+                        device).to(dtype)
         x = x.reshape(tuple(x.shape) + (1,) * (2 - x.ndim))
         cols.append(x.expand(n_steps, batch))
     return torch.stack(cols, dim=1).contiguous()
@@ -698,6 +714,9 @@ class PlantTables:
     cl: torch.Tensor
     t: torch.Tensor
     time: torch.Tensor          # [B]: each plant's clock
+    # the four lead-ins in order, one buffer that ``lead`` views: B3's
+    # histories start as one copy of it
+    lead_block: torch.Tensor
 
 
 @dataclass
@@ -717,19 +736,10 @@ def _leaf(obj, sub, field):
     return getattr(obj.base if sub == "base" else obj, field)
 
 
-@spanned("wt.b3.tables")
-def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
-                 consume_line: bool = True) -> PlantTables:
-    """Pack a plant (single ``[Z]`` or batched ``[B, Z]``) and its forcing
-    into the kernel's tables, resolving the sample lines' lead-in from the
-    incoming carry rings."""
-    state = plant.reactor
-    ph = state.pH
-    single = ph.ndim == 1
-    batch = 1 if single else ph.shape[0]
-    dtype, device = ph.dtype, ph.device
-    statics = sensor_statics(params, dt)
-
+def forcing_mode(boundary, n_steps: int, batch: int) -> int:
+    """``FORCING_CONSTANT``, ``_SHARED`` or ``_PER_PLANT`` from the fields'
+    ranks; raises for a schedule of another length than ``n_steps`` or a
+    per-plant field of another shape than ``[n_steps, batch]``."""
     ndims = {name: getattr(getattr(boundary, name), "ndim", 0)
              for name in F.BOUNDARY_FIELDS}
     scheduled = FORCING_CONSTANT if max(ndims.values()) == 0 \
@@ -747,16 +757,40 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
                 or max(ndims.values()) > 2:
             raise ValueError(f"per-plant schedule fields must be "
                              f"[{n_steps}, {batch}]")
+    return scheduled
+
+
+def _state_tables(state, dtype, single: bool):
+    """The reactor state as the kernel's ``[B, Z]`` tables in ``dtype``."""
+    def prep(x):
+        x = x if x.dtype == dtype else x.to(dtype)
+        return (x.unsqueeze(0) if single else x).contiguous()
+
+    return prep(state.pH), prep(state.chlorine), prep(state.temperature)
+
+
+@spanned("wt.b3.tables")
+def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
+                 consume_line: bool = True) -> PlantTables:
+    """Pack a plant (single ``[Z]`` or batched ``[B, Z]``) and its forcing
+    into the kernel's tables, resolving the sample lines' lead-in from the
+    incoming carry rings, with PyTorch operations (the plain version's
+    route; ``pack_tables`` makes the same tables for B3)."""
+    state = plant.reactor
+    ph = state.pH
+    single = ph.ndim == 1
+    batch = 1 if single else ph.shape[0]
+    dtype, device = ph.dtype, ph.device
+    statics = sensor_statics(params, dt)
+
+    scheduled = forcing_mode(boundary, n_steps, batch)
+    if scheduled == FORCING_PER_PLANT:
         forcing = plant_schedule_table(boundary, n_steps, batch, dtype,
                                        device)
     elif scheduled == FORCING_SHARED:
         forcing = F.schedule_table(boundary, n_steps, dtype, device)
     else:
         forcing = F.boundary_table(boundary, batch, dtype, device)
-
-    def prep(x):
-        x = x.to(dtype)
-        return (x[None, :] if single else x).contiguous()
 
     sensor_params = torch.stack([
         F._column(_leaf(getattr(params, attr), sub, field), batch, dtype,
@@ -785,19 +819,345 @@ def build_tables(params, plant, boundary, *, dt: float, n_steps: int,
         if consume_line and d_max > 0 and sp.line_capacity > 0:
             lead.append(_resolve_lead_in(
                 getattr(plant, attr).base, delay, d_arr, d_max, state.time,
-                dt, batch, dtype).contiguous())
+                dt, batch, dtype))
         else:
             lead.append(torch.full((d_max + 1, batch), math.nan,
                                    dtype=dtype, device=device))
+    # the lead-ins as views of one block, as the pack makes them
+    lead_block = torch.cat([x.reshape(-1) for x in lead])
+    lead = [x.view(y.shape) for x, y in zip(
+        lead_block.split([y.numel() for y in lead]), lead)]
+    ph, cl, t = _state_tables(state, dtype, single)
+    TABLE_PACKS["tensors"] += 1
     return PlantTables(
         statics=statics, scheduled=scheduled,
         ptab=F.param_table(params.reactor, batch, dtype, device),
         forcing=forcing, sensor_params=sensor_params,
         carry_float=carry_float, carry_int=carry_int,
         delay_steps=torch.stack(delay_steps).contiguous(), lead=lead,
-        ph=prep(state.pH), cl=prep(state.chlorine),
-        t=prep(state.temperature),
-        time=state.time.to(dtype).reshape(-1).expand(batch).contiguous())
+        ph=ph, cl=cl, t=t,
+        time=state.time.to(dtype).reshape(-1).expand(batch).contiguous(),
+        lead_block=lead_block)
+
+
+# ---------------------------------------------------------------------------
+# The table pack: the same tables made on the card in one launch
+# ---------------------------------------------------------------------------
+
+# The leaves ``build_tables`` reads, in the pack kernel's order
+# (csrc/fused_plant.cu: pack::kPCols .. pack::kLeaves): each sensor's
+# parameters (``_PCOLS``), float carries and integer carries, the reactor
+# parameters (``PARAM_COLS``, from ``params.reactor`` or its ``chem``), the
+# boundary fields, the plant clock, then per sample line its ring's
+# values, times, count and pointer and its delay.
+_CHEM = {f.name for f in fields(R.ChemistryConstants)}
+_PARAM_SUB = {name: "chem" if name in _CHEM else None
+              for name in F.PARAM_COLS}
+_LINE_LEAVES = ("line_values", "line_times", "line_count", "line_ptr")
+PACK_LEAVES = tuple(
+    [("params", attr, sub, field) for attr, sub, field in _PCOLS]
+    + [("plant", attr, sub, field) for attr, sub, field, _ in _FLOAT_CCOLS]
+    + [("plant", attr, sub, field) for attr, sub, field, _ in _INT_CCOLS]
+    + [("reactor", _PARAM_SUB[name], name) for name in F.PARAM_COLS]
+    + [("boundary", name) for name in F.BOUNDARY_FIELDS]
+    + [("clock",)]
+    + [leaf for attr in _LINE_ATTRS
+       for leaf in [("plant", attr, "base", f) for f in _LINE_LEAVES]
+       + [("params", attr, "base", "line_delay_s")]])
+# The column leaves before the boundary fields as (holder, field): the
+# holders are the reactor parameters, their chemistry, then per sensor its
+# parameters, their base, its carry and the carry's base.
+_HOLDERS = [("reactor", None), ("reactor", "chem")] + [
+    (src, attr, sub) for _, attr, _ in SENSORS for src in ("params", "plant")
+    for sub in (None, "base")]
+_COLUMN_LEAVES = [(_HOLDERS.index(leaf[:-1]), leaf[-1])
+                  for leaf in PACK_LEAVES[:N_PCOLS + N_CCOLS
+                                          + len(F.PARAM_COLS)]]
+# Rows of the float block before the forcing (sensor parameters, float
+# carries, reactor parameters) and of the int32 block (integer carries,
+# then the four delays in steps).
+PACK_FLOAT_ROWS = N_PCOLS + N_FLOAT_CCOLS + len(F.PARAM_COLS)
+PACK_INT_ROWS = N_INT_CCOLS + len(_LINE_ATTRS)
+
+# Element types of a leaf (csrc/fused_plant.cu: pack::LeafKind): a tensor's,
+# or a host number kept as ``_column`` keeps it, float64 or int64 until the
+# cast.
+LEAF_KINDS = {torch.float32: 0, torch.float64: 1, torch.bool: 2,
+              torch.int32: 3, torch.int64: 4}
+HOST_FLOAT, HOST_INT = 5, 6
+_KIND_BITS = 4
+_MAX_STRIDE = 1 << (32 - _KIND_BITS)
+
+# The int64 fields the pack kernel takes besides the leaves
+# (csrc/fused_plant.cu: pack::Layout), in order; the per-line ones hold
+# four values, ``forcing_plant_stride`` ten (one per boundary field).
+PACK_FIELDS = ("n_leaves", "n_pcols", "n_float_ccols", "n_int_ccols",
+               "n_params", "n_boundary", "batch", "n_steps", "scheduled",
+               "forcing_at", "clock_at", "forcing_plant_stride", "d_max",
+               "slots", "lead", "value_slot_stride", "time_slot_stride",
+               "lead_at")
+
+# How often a call's tables were made, by route, counted where they are
+# made: "kernel" the pack kernel (``pack_tables``, for B3), "tensors"
+# PyTorch operations (``build_tables``, for the plain version on either
+# device).
+TABLE_PACKS = {"kernel": 0, "tensors": 0}
+
+
+@dataclass
+class TableDescriptor:
+    """What the pack kernel reads. Per leaf of ``PACK_LEAVES``: its value
+    (a tensor on the plant's device, a host number, or None for the ring of
+    a line whose lead-in is not consumed), its element type (``LEAF_KINDS``,
+    ``HOST_FLOAT``, ``HOST_INT``) and its batch stride (0: one value for
+    every plant; a scheduled boundary field's is its step stride).
+    ``layout``: ``PACK_FIELDS``' values, where the tables go in the float
+    block included (elements from its start)."""
+
+    leaves: list
+    kinds: list
+    strides: list
+    layout: dict
+
+    def arrays(self):
+        """The arrays ``wt_pack_tables`` takes, as NumPy arrays: addresses
+        (a host number's bits), codes (kind | stride << 4), the layout."""
+        at = [x.data_ptr() if kind < HOST_FLOAT
+              else struct.unpack("<Q", struct.pack("<d", x))[0]
+              if kind == HOST_FLOAT else int(x or 0) & 0xFFFFFFFFFFFFFFFF
+              for x, kind in zip(self.leaves, self.kinds)]
+        code = np.array(self.kinds, np.uint32) \
+            | np.array(self.strides, np.uint32) << np.uint32(_KIND_BITS)
+        flat = []
+        for name in PACK_FIELDS:
+            v = self.layout[name]
+            flat += v if isinstance(v, list) else [v]
+        return (np.array(at, np.uint64), code, np.array(flat, np.int64))
+
+
+def _host_entry(x):
+    """A host number as ``_column`` converts it (through NumPy: a Python
+    float stays float64): ``(value, kind, 0)``, or None for what is not
+    one number."""
+    a = np.asarray(x)
+    if a.size != 1 or a.dtype.kind not in "fbiu":
+        return None
+    if a.dtype.kind == "f":
+        return float(a.reshape(())), HOST_FLOAT, 0
+    return int(a.reshape(())), HOST_INT, 0
+
+
+def _tensor_entry(x: torch.Tensor, stride: int):
+    kind = LEAF_KINDS.get(x.dtype)
+    if kind is None:
+        raise TypeError(f"the table pack reads float32, float64, bool, "
+                        f"int32 and int64 leaves, not {x.dtype}")
+    if not 0 <= stride < _MAX_STRIDE:
+        raise ValueError(f"a leaf's stride {stride} is beyond the table "
+                         f"pack's {_MAX_STRIDE}")
+    return x, kind, stride
+
+
+def _on(x, device):
+    """``x`` where the pack kernel reads it: a tensor on ``device`` (as
+    ``_column`` puts it there), or a host number, which travels in the
+    descriptor."""
+    if isinstance(x, torch.Tensor):
+        return x if x.device == device else F.on_device(x, device)
+    if _host_entry(x) is not None:
+        return x
+    return F.on_device(np.asarray(x), device)
+
+
+def _column_entry(x, n: int, device):
+    """``(value, kind, stride)`` of a leaf that ``_column(x, n, ...)``
+    reads: one value, or ``n`` values ``stride`` elements apart."""
+    x = _on(x, device)
+    if not isinstance(x, torch.Tensor):
+        return _host_entry(x)
+    size = x.numel()
+    if size == 1:
+        return _tensor_entry(x, 0)
+    if size != n:
+        raise ValueError(f"a leaf of {size} values where the table takes "
+                         f"1 or {n}")
+    if x.ndim != 1:
+        x = x.reshape(-1)
+    return _tensor_entry(x, x.stride(0))
+
+
+def _ring_entry(x, batch: int, device):
+    """A ring's values or times (``[C]`` for every plant, or ``[B, C]``):
+    ``((value, kind, plant stride), slot stride)``."""
+    if not isinstance(x, torch.Tensor) or x.ndim not in (1, 2) \
+            or (x.ndim == 2 and x.shape[0] not in (1, batch)):
+        raise ValueError(f"a sample-line ring must be [C] or [{batch}, C]")
+    if x.device != device:
+        x = F.on_device(x, device)
+    plant = x.stride(0) if x.ndim == 2 and x.shape[0] > 1 else 0
+    return _tensor_entry(x, plant), x.stride(-1)
+
+
+def describe_tables(params, plant, boundary, statics, *, dt: float,
+                    n_steps: int, consume_line: bool = True
+                    ) -> TableDescriptor:
+    """The pack kernel's descriptor of the tables ``build_tables`` makes
+    from these inputs (``statics``: ``sensor_statics(params, dt)``). Walks
+    ``PACK_LEAVES`` reading each tensor's address, type and stride; a host
+    number travels in the descriptor. Raises where ``build_tables`` would:
+    a schedule of the wrong length or shape."""
+    state = plant.reactor
+    ph = state.pH
+    batch = 1 if ph.ndim == 1 else ph.shape[0]
+    device = ph.device
+    scheduled = forcing_mode(boundary, n_steps, batch)
+
+    # the objects the column leaves hang from (_HOLDERS' order), each
+    # looked up once
+    holders = [params.reactor, params.reactor.chem]
+    for _, attr, _ in SENSORS:
+        for obj in (getattr(params, attr), getattr(plant, attr)):
+            holders += [obj, obj.base]
+    entries = []
+    for holder, field in _COLUMN_LEAVES:
+        x = getattr(holders[holder], field)
+        # the common leaf, one value on the device, without a call
+        kind = LEAF_KINDS.get(x.dtype) if type(x) is torch.Tensor \
+            and x.ndim == 0 and x.device == device else None
+        entries.append((x, kind, 0) if kind is not None
+                       else _column_entry(x, batch, device))
+
+    plant_stride = [0] * len(F.BOUNDARY_FIELDS)
+    for i, name in enumerate(F.BOUNDARY_FIELDS):
+        x = getattr(boundary, name)
+        if scheduled != FORCING_PER_PLANT:
+            entries.append(_column_entry(
+                x, n_steps if scheduled else batch, device))
+            continue
+        # [n_steps, B], [n_steps] or one value, broadcast as
+        # plant_schedule_table broadcasts it
+        x = _on(x, device)
+        if not isinstance(x, torch.Tensor):
+            entries.append(_host_entry(x))
+            continue
+        step = x.stride(0) if x.ndim >= 1 and x.shape[0] > 1 else 0
+        if x.ndim == 2 and x.shape[1] > 1:
+            plant_stride[i] = x.stride(1)
+        entries.append(_tensor_entry(x, step))
+    entries.append(_column_entry(state.time, batch, device))
+
+    d_max_of = {attr: d_max for attr, _, _, _, d_max in statics}
+    d_max, slots, lead, value_stride, time_stride = [], [], [], [], []
+    for attr in _LINE_ATTRS:
+        sp, carry = getattr(params, attr).base, getattr(plant, attr).base
+        d_max.append(d_max_of[attr])
+        ring = consume_line and d_max[-1] > 0 and sp.line_capacity > 0 \
+            and carry.line_values.shape[-1] > 0
+        lead.append(int(ring))
+        if ring:
+            (lv, vs), (lt, ts) = (_ring_entry(carry.line_values, batch,
+                                              device),
+                                  _ring_entry(carry.line_times, batch,
+                                              device))
+            entries += [lv, lt, _column_entry(carry.line_count, batch, device),
+                        _column_entry(carry.line_ptr, batch, device)]
+            slots.append(int(carry.line_values.shape[-1]))
+        else:
+            entries += [(None, HOST_INT, 0)] * len(_LINE_LEAVES)
+            vs = ts = 0
+            slots.append(0)
+        value_stride.append(vs)
+        time_stride.append(ts)
+        if not isinstance(sp.line_delay_s, torch.Tensor):
+            raise TypeError(f"{attr}: line_delay_s must be a tensor")
+        entries.append(_column_entry(sp.line_delay_s, batch, device))
+
+    forcing = {FORCING_CONSTANT: batch, FORCING_SHARED: n_steps,
+               FORCING_PER_PLANT: n_steps * batch}[scheduled] \
+        * len(F.BOUNDARY_FIELDS)
+    forcing_at = PACK_FLOAT_ROWS * batch
+    clock_at = forcing_at + forcing
+    lead_at = [clock_at + batch]
+    for d in d_max[:-1]:
+        lead_at.append(lead_at[-1] + (d + 1) * batch)
+    leaves, kinds, strides = (list(x) for x in zip(*entries))
+    return TableDescriptor(leaves, kinds, strides, layout=dict(
+        n_leaves=len(PACK_LEAVES), n_pcols=N_PCOLS,
+        n_float_ccols=N_FLOAT_CCOLS, n_int_ccols=N_INT_CCOLS,
+        n_params=len(F.PARAM_COLS), n_boundary=len(F.BOUNDARY_FIELDS),
+        batch=batch, n_steps=n_steps, scheduled=scheduled,
+        forcing_at=forcing_at, clock_at=clock_at,
+        forcing_plant_stride=plant_stride, d_max=d_max, slots=slots,
+        lead=lead, value_slot_stride=value_stride,
+        time_slot_stride=time_stride, lead_at=lead_at))
+
+
+@spanned("wt.b3.tables")
+def pack_tables(params, plant, boundary, *, dt: float, n_steps: int,
+                consume_line: bool = True) -> PlantTables:
+    """``build_tables``' tables, bit for bit, made on the card by one
+    launch of the pack kernel (``csrc/fused_plant.cu::pack_tables_kernel``)
+    from ``describe_tables``' descriptor, passed in the launch's arguments.
+    The tables are views of one buffer; the state tables are
+    ``build_tables``'. A CPU plant raises: its tables are
+    ``build_tables``'."""
+    from ics_wt_physicsengine_torch.ops import _build
+
+    state = plant.reactor
+    ph = state.pH
+    dtype, device = ph.dtype, ph.device
+    if device.type != "cuda":
+        raise ValueError("pack_tables needs a CUDA plant")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"pack_tables: float32 or float64 plants, not "
+                         f"{dtype}")
+    statics = sensor_statics(params, dt)
+    desc = describe_tables(params, plant, boundary, statics, dt=dt,
+                           n_steps=n_steps, consume_line=consume_line)
+    lay = desc.layout
+    batch, d_max = lay["batch"], lay["d_max"]
+    # one buffer in the working type: the float block, then the int32 block
+    # (32 int32 rows of B fill whole elements of either type)
+    lead_sizes = [(d + 1) * batch for d in d_max]
+    n_ints = PACK_INT_ROWS * batch * 4 // ph.element_size()
+    rows, forcing, time, *lead, ints = torch.empty(
+        lay["lead_at"][-1] + lead_sizes[-1] + n_ints, dtype=dtype,
+        device=device).split([PACK_FLOAT_ROWS * batch,
+                              lay["clock_at"] - lay["forcing_at"], batch]
+                             + lead_sizes + [n_ints])
+    ints = ints.view(torch.int32)
+    lib = _build.load("fused_plant")
+    arrays = desc.arrays()      # alive until the launch has copied them
+    with torch.cuda.device(device):     # the launch's current device
+        err = lib.wt_pack_tables(
+            int(dtype == torch.float64), *(a.ctypes.data for a in arrays),
+            float(dt), rows.data_ptr(), ints.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("table pack kernel launch failed: "
+                           f"{lib.wt_plant_error_string(err).decode()}")
+    LAUNCHES["pack_tables"] += 1
+    TABLE_PACKS["kernel"] += 1
+
+    forcing_shape = {
+        FORCING_CONSTANT: (len(F.BOUNDARY_FIELDS), batch),
+        FORCING_SHARED: (n_steps, len(F.BOUNDARY_FIELDS)),
+        FORCING_PER_PLANT: (n_steps, len(F.BOUNDARY_FIELDS), batch),
+    }[lay["scheduled"]]
+    sensor_params, carry_float, ptab = rows.view(PACK_FLOAT_ROWS, batch) \
+        .split([N_PCOLS, N_FLOAT_CCOLS, len(F.PARAM_COLS)])
+    carry_int, delay_steps = ints.view(PACK_INT_ROWS, batch).split(
+        [N_INT_CCOLS, len(_LINE_ATTRS)])
+    ph, cl, t = _state_tables(state, dtype, ph.ndim == 1)
+    return PlantTables(
+        statics=statics, scheduled=lay["scheduled"], ptab=ptab,
+        forcing=forcing.view(forcing_shape), sensor_params=sensor_params,
+        carry_float=carry_float, carry_int=carry_int,
+        delay_steps=delay_steps,
+        lead=[x.view(d + 1, batch) for x, d in zip(lead, d_max)],
+        ph=ph, cl=cl, t=t, time=time,
+        lead_block=rows.as_strided((sum(lead_sizes),), (1,),
+                                   lead[0].storage_offset()))
 
 
 def _words_for(bits, batch, n_steps, device):
@@ -1078,13 +1438,12 @@ def plant_kernel(tables: PlantTables, *, dt: float, substeps: int,
 
     lib = _build.load("fused_plant")
     n_rec = n_steps // record_every
-    # the histories start as copies of the lead-ins, made by one kernel
-    # into one buffer (a clone each is four cudaMemcpy calls a launch); the
-    # kernel indexes them by element, so any offset in the buffer will do
+    # the histories start as one copy of the lead-ins' block (a clone each
+    # is four cudaMemcpy calls a launch); the kernel indexes them by
+    # element, so any offset in the buffer will do
     sizes = [x.numel() for x in tables.lead]
     hist = [h.view(x.shape) for h, x in zip(
-        torch.cat([x.reshape(-1) for x in tables.lead]).split(sizes),
-        tables.lead)]
+        tables.lead_block.clone().split(sizes), tables.lead)]
     out = PlantResult(
         ph=torch.empty_like(ph), cl=torch.empty_like(ph),
         t=torch.empty_like(ph), time=torch.empty_like(tables.time),
@@ -1200,27 +1559,39 @@ def plant_rollout_fused(params, plant, boundary, *, dt: float,
                        for k, (rname, _, _) in enumerate(SENSORS)}
 
 
+def kernel_route():
+    """B3's route: ``(pack_tables, plant_kernel)``, the tables made by the
+    pack kernel and run by B3."""
+    return pack_tables, plant_kernel
+
+
+def tensor_route():
+    """The plain version's route: ``(build_tables, plant_plain)``, the
+    tables made by PyTorch operations and run by the plain version, on
+    either device."""
+    return build_tables, plant_plain
+
+
 def table_runner(params, plant):
-    """The table-level function a plant's device selects: ``plant_kernel``
-    for a CUDA plant, ``plant_plain`` for a CPU plant. Raises for a
-    configuration the kernel does not support."""
+    """The route a plant's device selects, ``(make tables, run them)``:
+    ``kernel_route()`` for a CUDA plant, ``tensor_route()`` for a CPU
+    plant. Raises for a configuration the kernel does not support."""
     reason = unsupported_reason(params)
     if reason is not None:
         raise ValueError(reason)
     device = plant.reactor.pH.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    return plant_kernel if device.type == "cuda" else plant_plain
+    return kernel_route() if device.type == "cuda" else tensor_route()
 
 
 @spanned("wt.b3.wrapper")
-def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
+def _rollout_with(route, params, plant, boundary, *, dt, substeps, n_steps,
                   stages, record_every, bits, seed, consume_line,
                   step0: int = 0, plant0: int = 0, served: bool = False):
-    """``plant_rollout_fused`` with the table-level function ``run``
-    (``plant_kernel`` or ``plant_plain``) given: pack the tables, run,
-    rebuild the plant. The kernel checks call it with ``plant_plain`` on
-    CUDA tensors for the reference on the card.
+    """``plant_rollout_fused`` on ``route`` (``table_runner``'s): make the
+    tables, run, rebuild the plant. The kernel checks call it with
+    ``tensor_route()`` on CUDA tensors for the reference on the card.
 
     Returns ``(plant, values, faults)``: the record as the kernel writes it,
     ``[n_steps // record_every, 7, B]`` in ``SENSORS`` order (``[...,
@@ -1236,8 +1607,9 @@ def _rollout_with(run, params, plant, boundary, *, dt, substeps, n_steps,
     single = state.pH.ndim == 1
     batch = 1 if single else state.pH.shape[0]
     dtype = state.pH.dtype
-    tables = build_tables(params, plant, boundary, dt=dt, n_steps=n_steps,
-                          consume_line=consume_line)
+    make_tables, run = route
+    tables = make_tables(params, plant, boundary, dt=dt, n_steps=n_steps,
+                         consume_line=consume_line)
     with span("wt.b3.launch"):
         out = run(tables, dt=dt, substeps=substeps, n_steps=n_steps,
                   stages=stages, record_every=record_every, bits=bits,

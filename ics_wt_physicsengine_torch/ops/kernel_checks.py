@@ -376,13 +376,14 @@ def plant_diff(got, ref) -> dict:
                 ints_equal=ints_equal)
 
 
-def _fused(run, params, plant, boundary, *, substeps, stages, n_steps,
+def _fused(route, params, plant, boundary, *, substeps, stages, n_steps,
            record_every=1, bits=None, seed=0, step0=0, plant0=0,
            served=False):
-    """B3's wrapper with ``run``: ``(plant, values, faults)``, the record
+    """B3's wrapper on ``route`` (``FP.kernel_route()`` or
+    ``FP.tensor_route()``): ``(plant, values, faults)``, the record
     ``[n_rec, 7(, B)]`` in ``FP.SENSORS`` order, faults None unless
     ``served``."""
-    return FP._rollout_with(run, params, plant, boundary, dt=DT,
+    return FP._rollout_with(route, params, plant, boundary, dt=DT,
                             substeps=substeps, n_steps=n_steps,
                             stages=stages, record_every=record_every,
                             bits=bits, seed=seed, consume_line=True,
@@ -416,9 +417,9 @@ def b3_vs_plain_on(params, plant, boundary, **kw):
     """Kernel B3 and its plain version from one plant with the same
     arguments (``_fused``'s), both on the card; returns the kernel's result
     and ``plant_diff`` of the two."""
-    got = _fused(FP.plant_kernel, params, plant, boundary, **kw)
+    got = _fused(FP.kernel_route(), params, plant, boundary, **kw)
     torch.cuda.synchronize()
-    ref = _fused(FP.plant_plain, params, plant, boundary, **kw)
+    ref = _fused(FP.tensor_route(), params, plant, boundary, **kw)
     return got, plant_diff(got, ref)
 
 
@@ -427,7 +428,8 @@ def serve_chunk_vs_plain(device, n_steps: int = 120, record_every: int = 7,
     """``models.plant.plant_serve_chunk`` on the card (one B3 launch, the
     Philox counter from ``step0``, the fault record) against the same chunk
     through B3's plain version on the card. Returns the chunk, ``plant_diff``
-    of (plant, values, fault codes) and the launches it made."""
+    of (plant, values, fault codes) and the chunk's launches by kernel
+    (``FP.LAUNCHES``)."""
     params, plant = plant_case(20, 1, torch.float32, device)
     substeps, _ = plant_plan(20, "rk4")
     sched = bench_schedule(n_steps)
@@ -435,17 +437,52 @@ def serve_chunk_vs_plain(device, n_steps: int = 120, record_every: int = 7,
     got = P.plant_serve_chunk(params, plant, sched, dt=DT, substeps=substeps,
                               record_every=record_every, seed=11,
                               step0=step0)
-    launches = FP.LAUNCHES["plant_rollout_fused"]
+    launches = dict(FP.LAUNCHES)
     every = math.gcd(n_steps, record_every)
     ref, values, faults = _fused(
-        FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
-        n_steps=n_steps, record_every=every, seed=11, step0=step0,
-        served=True)
+        FP.tensor_route(), params, plant, sched, substeps=substeps,
+        stages=None, n_steps=n_steps, record_every=every, seed=11,
+        step0=step0, served=True)
     k = record_every // every
     torch.cuda.synchronize()
     return got, plant_diff((got.plant, got.values, got.faults),
                            (ref, values[k - 1::k], faults[k - 1::k])), \
         launches
+
+
+def served_chunk_trace(device, n_chunks: int = 2, chunk: int = 600) -> dict:
+    """Served chunks of one 20-zone plant on the card, each in a
+    ``torch.profiler`` session of its own after one unprofiled chunk: per
+    chunk the names of the card's operations in the order they started,
+    and ``FP.TABLE_PACKS`` and ``FP.LAUNCHES`` over the profiled chunks.
+    Call it in a process of its own: after a profiler session and much
+    other work on the card, a later session in the same process can lose
+    its first device records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ics_wt_physicsengine_torch import __main__ as orchestrator
+
+    params, plant = P.make_plant(R.ReactorConfiguration(n_zones=20),
+                                 device=device)
+    scheds = [orchestrator.build_chunk_schedule(
+        BC, BC, chunk, DT, 0.0, device=device)[0]
+        for _ in range(n_chunks + 1)]
+    got = P.plant_serve_chunk(params, plant, scheds[0], dt=DT, substeps=3,
+                              seed=1)
+    FP.reset_launch_counts()
+    chunks = []
+    for k in range(1, n_chunks + 1):
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = P.plant_serve_chunk(params, got.plant, scheds[k], dt=DT,
+                                      substeps=3, seed=1, step0=chunk * k)
+            torch.cuda.synchronize(device)
+        ran = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+        chunks.append([e.name() for e in ran])
+    return dict(chunks=chunks, table_packs=dict(FP.TABLE_PACKS),
+                launches=dict(FP.LAUNCHES))
 
 
 def _lanes(tree, lanes: slice):
@@ -472,7 +509,7 @@ def fleet_chunk_vs_plain(device, n_lanes: int = 8, n_steps: int = 120,
     the card with the paused lane put back; and the chunk of lanes
     ``shard`` alone with ``plant0 = shard.start`` against those lanes of the
     whole chunk. Returns ``plant_diff`` of each and the whole chunk's
-    launches."""
+    launches by kernel (``FP.LAUNCHES``)."""
     from ics_wt_physicsengine_torch import fleet
 
     params, plant = plant_case(20, n_lanes, torch.float32, device,
@@ -491,11 +528,11 @@ def fleet_chunk_vs_plain(device, n_lanes: int = 8, n_steps: int = 120,
               step0=5000)
     FP.reset_launch_counts()
     got = fleet.serve_chunk_masked(params, plant, sched, mask, **kw)
-    launches = FP.LAUNCHES["plant_rollout_fused"]
+    launches = dict(FP.LAUNCHES)
     ref, values, faults = _fused(
-        FP.plant_plain, params, plant, sched, substeps=substeps, stages=None,
-        n_steps=n_steps, record_every=record_every, seed=11, step0=5000,
-        served=True)
+        FP.tensor_route(), params, plant, sched, substeps=substeps,
+        stages=None, n_steps=n_steps, record_every=record_every, seed=11,
+        step0=5000, served=True)
     ref = fleet.select_lanes(mask, ref, plant)
     whole = plant_diff((got.plant, got.values, got.faults),
                        (ref, values, faults))
@@ -552,8 +589,8 @@ def b3_constant_schedule_equals_constant(n_zones, n_plants, device, *,
         for f in dataclasses.fields(BC) if getattr(BC, f.name) is not None})
     kw = dict(substeps=substeps, stages=stages, n_steps=n_steps,
               record_every=4, seed=5)
-    a = _fused(FP.plant_kernel, params, plant, BC, **kw)
-    b = _fused(FP.plant_kernel, params, plant, const, **kw)
+    a = _fused(FP.kernel_route(), params, plant, BC, **kw)
+    b = _fused(FP.kernel_route(), params, plant, const, **kw)
     torch.cuda.synchronize()
     d = plant_diff(a, b)
     return d["max_abs_err"] == 0.0 and d["nan_equal"] and d["ints_equal"]
@@ -570,12 +607,12 @@ def b3_chained(device, n_plants: int = 8, n_zones: int = 5,
     substeps, stages = plant_plan(n_zones, "rk4")
     words = plant_words(3 * segment, n_plants, device, seed=3)
     ends = []
-    for runs in ((FP.plant_plain, FP.plant_kernel, FP.plant_plain),
-                 (FP.plant_plain,) * 3):
+    plain, kernel = FP.tensor_route(), FP.kernel_route()
+    for routes in ((plain, kernel, plain), (plain,) * 3):
         plant, rows = plant0, []
-        for k, run in enumerate(runs):
+        for k, route in enumerate(routes):
             plant, values, _ = _fused(
-                run, params, plant, BC, substeps=substeps, stages=stages,
+                route, params, plant, BC, substeps=substeps, stages=stages,
                 n_steps=segment,
                 bits=words[k * segment:(k + 1) * segment].contiguous())
             rows.append(values)

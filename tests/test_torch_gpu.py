@@ -227,7 +227,7 @@ def test_plant_wrappers_launch_b3_on_cuda_tensors(cuda):
     new, traj = P.plant_rollout_auto(params, new, K.bench_schedule(10), 1.0,
                                      3, 10, seed=2)
     torch.cuda.synchronize()
-    assert FP.LAUNCHES == {"plant_rollout_fused": 2}
+    assert FP.LAUNCHES == {"plant_rollout_fused": 2, "pack_tables": 2}
     assert F.LAUNCHES == {"rollout_fused": 0, "rollout_scheduled_fused": 0}
     assert readings["pH_outlet"].shape == (4,)
     assert readings["pH_outlet"].is_cuda
@@ -241,7 +241,7 @@ def test_serve_chunk_kernel_matches_plain_bit_equal(cuda):
     counter from a step past 2^32 and the fault-code record, bit-equal to
     B3's plain version on the card (plant, values, fault codes)."""
     chunk, diff, launches = K.serve_chunk_vs_plain(cuda)
-    assert launches == 1
+    assert launches == {"plant_rollout_fused": 1, "pack_tables": 1}
     assert diff["max_abs_err"] == 0.0 and diff["nan_equal"] \
         and diff["ints_equal"], diff
     assert chunk.values.shape == (120 // 7, 7)
@@ -269,7 +269,7 @@ def test_fleet_chunk_on_the_card_matches_plain_and_shards_exactly(cuda,
     lanes, paused, shard = K.FLEET_CHUNK_CASES[case]
     out = K.fleet_chunk_vs_plain(cuda, n_lanes=lanes, paused=paused,
                                  shard=shard)
-    assert out["launches"] == 1
+    assert out["launches"] == {"plant_rollout_fused": 1, "pack_tables": 1}
     for key in ("whole", "shard"):
         d = out[key]
         assert d["max_abs_err"] == 0.0 and d["nan_equal"] \
@@ -734,7 +734,8 @@ def _tools(name="torch_soak"):
 
 def test_quick_bench_on_the_card(cuda, tmp_path):
     """Every row of the port's bench at --quick: every rate > 0, and each
-    kernel row launches its kernel once a call and no other."""
+    kernel row launches its kernel once a call (B3's with its table pack)
+    and no other."""
     from ics_wt_physicsengine_torch import bench as B
 
     run = B.BenchRun(cuda, quick=True, log=lambda msg: None)
@@ -746,7 +747,8 @@ def test_quick_bench_on_the_card(cuda, tmp_path):
     for row, r in extra["rows"].items():
         want = B.KERNEL_ROWS.get(row)
         assert r["launches"] == r["calls"], row
-        assert set(r["calls"]) == ({want} if want else set()), row
+        assert set(r["calls"]) == (set(B.WRAPPER_LAUNCHES.get(want, (want,)))
+                                   if want else set()), row
 
 
 def test_philox_stats_on_the_card(cuda):
@@ -802,7 +804,8 @@ def test_kernel_examples_launch_their_kernels_on_the_card(cuda, capsys):
     assert out["n_segments"] == 2 and len(out["series"]["pH_outlet"]) == 120
     assert any(np.isfinite(v).any() for v in out["series"].values())
     counts = {**F.LAUNCHES, **FP.LAUNCHES, **PS.LAUNCHES}
-    assert counts == {k: 2 * int(k == "plant_rollout_fused") for k in counts}
+    assert counts == {k: 2 * int(k in ("plant_rollout_fused", "pack_tables"))
+                      for k in counts}
     assert "instrument health after the program" in capsys.readouterr().out
 
 
